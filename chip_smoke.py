@@ -7,7 +7,10 @@ Phases, each printing one line:
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
      kernel in img2sgf_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, exactly equal, with both times;
+     shapes the main path gives it and at larger ones (K1: a 1280x1280
+     staircase and 6400-word rows; K2: circle_max_radius 60), exactly equal,
+     with both times and the roofline bound; K1's sweep count equal to the
+     plain loop's;
   3. direction_bins and pixel_steps over all 2041^2 Sobel gradient pairs,
      CUDA against CPU, exactly equal;
   4. the main path on a seeded synthetic 19x19 diagram at 768x768: the CLI
@@ -16,10 +19,13 @@ Phases, each printing one line:
      whole BoardResult bit-equal to the port's CPU run, the warm wall time
      and the per-stage times; then a noisy diagram that takes the overflow
      rerun, CUDA against CPU;
-  5. every kernel launched by the main-path run (launch counters > 0).
+  5. every kernel launched by the main-path run (launch counters > 0);
+  6. torch.profiler over each kernel's main-path call: its launches and
+     device reads per call (K1 must be one kernel launch and one device
+     read) and its device time.
 
-Then one JSON line with each kernel's launches, error and times, the card's
-name and power limit, and as the last line
+Then one JSON line with each kernel's launches, error, times and bound, the
+card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA device it exits with 1 before doing anything.
@@ -44,6 +50,9 @@ SIZE = 768           # the 768-class book scan the CLI runs at native size
 N_LINES = 19
 N_STONES = 40
 SEED = 0
+BIG = 1280           # the 1280-class scan: K1 staircase planes past a row segment
+# K1 rows past 6144 words, the cap of a kernel that held a line in shared memory
+WIDE = (16, 6400)
 
 
 def log(phase: str, msg: str) -> None:
@@ -138,27 +147,129 @@ def check_equal(name, a, b):
     return err
 
 
-def phase_kernels(dev, rgb, cfg):
-    """Phase 2: each kernel against its plain version on the card."""
+# Roofline inputs: the published H100 SXM memory rate (NVIDIA data sheet) and
+# the int32 rate of 64 lanes per SM per clock, at the card's own SM
+# count and maximum SM clock as this run reads them.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+# Least int32 instructions of the work each kernel must do (sm_90's LOP3
+# does any bitwise function of three words in one):
+K1_OPS_PER_WORD_SWEEP = 8   # 4 one-sided fills a | (g & f), the dilation's
+#                             two 3-way ORs, the gate-or, the change test
+K2_OPS_PER_STEP = 10        # r, two products, two shifts, two offsets,
+#                             the patch test and the count
+K3_OPS_PER_WINDOW_PIXEL = 1  # the edge test, at annulus pixels in the plane
+K3_OPS_PER_EDGE = 2          # bin lookup and count, at edge pixels only
+
+
+def int32_ops_per_s(dev):
+    """(int32 operations per second, maximum SM clock in MHz)."""
     import torch
 
-    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
-    from img2sgf_tpu_torch.ops import hysteresis_cuda as hyst
-    from img2sgf_tpu_torch.ops.canny import _canny_pre, pack_planes
-    from img2sgf_tpu_torch.pipeline.detect import (
-        _plane_state_pool, _pre_circles, _variant_dedup)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, mhz
+
+
+def roofline(nbytes, ops, rate):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_walk_steps(emask, ys, xs, valid, max_r, cells):
+    """Radius steps K2's walk takes on these inputs: every edge pixel in a
+    valid candidate's window walks 2*kmax+1 radii, those of the central
+    block twice (box sums over an integral image of emask)."""
+    import torch
+
+    from img2sgf_tpu_torch.hough import rescore_cuda
+
+    reach = cells // 2
+    kmax = rescore_cuda._geometry(1, max_r, cells)[6]
+    P, H, W = emask.shape
+    integ = torch.zeros((P, H + 1, W + 1), dtype=torch.int64, device=emask.device)
+    integ[:, 1:, 1:] = emask.long().cumsum(1).cumsum(2)
+    pidx = torch.arange(P, device=emask.device)[:, None]
+
+    def edges_within(h):
+        y0, y1 = (ys - h).clamp(0, H), (ys + h + 1).clamp(0, H)
+        x0, x1 = (xs - h).clamp(0, W), (xs + h + 1).clamp(0, W)
+        box = (integ[pidx, y1, x1] - integ[pidx, y0, x1]
+               - integ[pidx, y1, x0] + integ[pidx, y0, x0])
+        return int((box * valid).sum())
+
+    return (edges_within(max_r + reach + 2) + edges_within(2 * reach)) \
+        * (2 * kmax + 1)
+
+
+def k2_bytes(emask, ys, xs, valid, max_r, cells):
+    """Bytes K2 must move on these inputs: emask once, sx and sy (4 B each)
+    only at edge pixels inside some valid candidate's window, ys and xs
+    (int32), valid, and the float32 output."""
+    import torch
+
+    P, H, W = emask.shape
+    h = max_r + cells // 2 + 2
+    y0, y1 = (ys - h).clamp(0, H), (ys + h + 1).clamp(0, H)
+    x0, x1 = (xs - h).clamp(0, W), (xs + h + 1).clamp(0, W)
+    pidx = torch.arange(P, device=emask.device)[:, None].expand_as(ys)
+    m = valid.bool()
+    diff = torch.zeros((P, H + 1, W + 1), dtype=torch.int32, device=emask.device)
+    one = torch.ones(int(m.sum()), dtype=torch.int32, device=emask.device)
+    for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        diff.index_put_((pidx[m], yy[m], xx[m]), sign * one, accumulate=True)
+    covered = diff.cumsum(1).cumsum(2)[:, :H, :W] > 0
+    n_edges = int((covered & emask).sum())
+    return (emask.numel() + 8 * n_edges + 9 * ys.numel()
+            + 4 * P * ys.shape[1] * cells * cells)
+
+
+def k3_ops(emask, ys, xs, want, min_r, max_r):
+    """Instructions K3 must execute on these inputs: an edge test at each
+    annulus pixel of a wanted window that lies in the plane, a bin lookup
+    and a count at each edge pixel among them."""
+    import torch
+
+    from img2sgf_tpu_torch.hough import radius_cuda
+
+    bmap, win, _ = radius_cuda._bin_map(min_r, max_r)
+    dev = emask.device
+    ann = torch.from_numpy(np.flatnonzero(bmap >= 0)).to(dev)
+    dy, dx = ann // win - max_r, ann % win - max_r
+    P, H, W = emask.shape
+    rows = want.reshape(-1).nonzero()[:, 0]
+    n_in = n_edge = 0
+    for start in range(0, rows.numel(), 512):
+        r = rows[start:start + 512]
+        p = (r // ys.shape[1])[:, None]
+        yy = ys.reshape(-1)[r][:, None] + dy
+        xx = xs.reshape(-1)[r][:, None] + dx
+        inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        e = emask[p, yy.clamp(0, H - 1), xx.clamp(0, W - 1)] & inside
+        n_in += int(inside.sum())
+        n_edge += int(e.sum())
+    return K3_OPS_PER_WINDOW_PIXEL * n_in + K3_OPS_PER_EDGE * n_edge
+
+
+def k1_cases(dev, rgb, cfg, rng):
+    """K1's inputs: the main path's two Canny calls and staircase planes
+    whose sweeps bind the cap, past a row segment, and past the old 6144
+    line cap. Returns [(label, edge0 words, gate words, iters)]."""
+    import torch
+
+    from img2sgf_tpu_torch.ops.canny import _canny_pre, _nms, pack_planes
     from img2sgf_tpu_torch.ops.color import preprocess
     from img2sgf_tpu_torch.ops.sobel import sobel3
-    from img2sgf_tpu_torch.ops.canny import _nms
+    from img2sgf_tpu_torch.pipeline.detect import _pre_circles, _variant_dedup
 
-    rng = np.random.default_rng(SEED + 1)
-    t_rgb = torch.from_numpy(rgb).to(dev)
-    results = {}
-
-    # --- K1: outer Canny [1, H, W], internal Canny pool [8, H, W], stairs
-    pre = preprocess(t_rgb, cfg.contrast, cfg.brightness)
+    pre = preprocess(torch.from_numpy(rgb).to(dev), cfg.contrast, cfg.brightness)
     strong, cand = _canny_pre(pre, cfg.edge_min, cfg.edge_max, cfg.gradient_l2)
-    _grey, _edges, variants = _pre_circles(t_rgb, cfg)
+    _grey, _edges, variants = _pre_circles(torch.from_numpy(rgb).to(dev), cfg)
     keep, _ = _variant_dedup(cfg, variants.shape[0])
     planes = variants[keep]
     dx, dy = sobel3(planes)
@@ -166,53 +277,121 @@ def phase_kernels(dev, rgb, cfg):
     low, high = max(cfg.circle_canny_high / 2, 1), cfg.circle_canny_high
     cand_p = _nms(mag, dx, dy, int(low))
     strong_p = cand_p & (mag > int(high))
-    stairs = [staircase_plane(rng, SIZE, SIZE) for _ in range(8)]
-    st_strong = torch.from_numpy(np.stack([s for s, _ in stairs])).to(dev)
-    st_cand = torch.from_numpy(np.stack([c for _, c in stairs])).to(dev)
+
+    def stairs(r, H, W):
+        pairs = [staircase_plane(r, H, W) for _ in range(8)]
+        return (torch.from_numpy(np.stack([a for a, _ in pairs])).to(dev),
+                torch.from_numpy(np.stack([b for _, b in pairs])).to(dev))
+
+    st_s, st_c = stairs(rng, SIZE, SIZE)
+    rng2 = np.random.default_rng(SEED + 2)  # new cases keep rng's stream
+    big_s, big_c = stairs(rng2, BIG, BIG)
+    wide_c = torch.from_numpy(rng2.random((8, *WIDE)) < 0.45).to(dev)
+    wide_c[:, 3, :] = True  # a gated run along a whole row
+    wide_s = wide_c & torch.from_numpy(rng2.random((8, *WIDE)) < 0.002).to(dev)
+    wide_s[:, 3, -1] = True
     cases = [
-        (f"outer canny [1,{SIZE},{SIZE}]", strong[None], cand[None], cfg.hysteresis_iters),
-        (f"internal canny [{planes.shape[0]},{SIZE},{SIZE}]", strong_p, cand_p, cfg.hysteresis_iters),
-        (f"stairs [8,{SIZE},{SIZE}] iters=3", st_strong, st_cand, 3),
-        (f"stairs [8,{SIZE},{SIZE}] iters=256", st_strong, st_cand, 256),
+        ("outer canny", strong[None], cand[None], cfg.hysteresis_iters),
+        (f"internal canny ({planes.shape[0]} planes)", strong_p, cand_p,
+         cfg.hysteresis_iters),
+        ("stairs iters=3", st_s, st_c, 3),
+        ("stairs iters=256", st_s, st_c, 256),
+        ("stairs iters=256", big_s, big_c, 256),
+        (f"random, a {WIDE[1]}-word run", wide_s, wide_c, 256),
     ]
+    return [(label, pack_planes(s & c), pack_planes(c), iters)
+            for label, s, c, iters in cases]
+
+
+def phase_kernels(dev, rgb, cfg):
+    """Phase 2: each kernel against its plain version on the card, with the
+    call's time, the plain version's, and the roofline bound."""
+    import torch
+
+    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.ops import hysteresis_cuda as hyst
+    from img2sgf_tpu_torch.pipeline.detect import (
+        _plane_state_pool, _pre_circles, _variant_dedup)
+
+    rng = np.random.default_rng(SEED + 1)
+    rate, mhz = int32_ops_per_s(dev)
+    log("kernels", f"int32 rate {rate / 1e12:.2f} T op/s (64 lanes x SMs x "
+        f"{mhz:.0f} MHz max SM clock); memory {HBM_BYTES_PER_S / 1e12} TB/s")
+    results = {}
+
+    # --- K1
     err = 0.0
-    times = {}
-    for label, s, c, iters in cases:
-        e0, g = pack_planes(s & c), pack_planes(c)
+    k1 = []
+    cases = k1_cases(dev, rgb, cfg, rng)
+    for label, e0, g, iters in cases:
+        shape = "[" + ",".join(map(str, e0.shape)) + "]"
         out_k = hyst.hysteresis_packed(e0, g, iters)
         sweeps = hyst.last_sweeps
         out_p = hyst.hysteresis_packed_plain(e0, g, iters)
-        err = max(err, check_equal(f"K1 {label}", out_k, out_p))
+        plain_sweeps = hyst.last_sweeps
+        if sweeps != plain_sweeps:
+            raise AssertionError(f"K1 {label} {shape}: {sweeps} sweeps, the "
+                                 f"plain loop ran {plain_sweeps}")
+        err = max(err, check_equal(f"K1 {label} {shape}", out_k, out_p))
+        big = e0.numel() > SIZE * SIZE
         ms = cuda_ms(lambda: hyst.hysteresis_packed(e0, g, iters), 5)
-        pms = cuda_ms(lambda: hyst.hysteresis_packed_plain(e0, g, iters), 2)
-        times[label] = (ms, pms)
-        log("kernels", f"K1 hysteresis {label}: equal, {sweeps} sweeps, "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    pool = times[cases[1][0]]  # the internal Canny: most of K1's main-path work
-    results["K1"] = dict(err=err, ms=pool[0], plain_ms=pool[1])
+        pms = cuda_ms(lambda: hyst.hysteresis_packed_plain(e0, g, iters),
+                      1 if big else 2)
+        b_ms, b_by = roofline(12 * e0.numel(),
+                              K1_OPS_PER_WORD_SWEEP * e0.numel() * sweeps, rate)
+        k1.append(dict(label=f"{label} {shape}", sweeps=sweeps, ms=ms,
+                       plain_ms=pms, bound_ms=b_ms, bound_by=b_by))
+        log("kernels", f"K1 hysteresis {label} words {shape} iters={iters}: "
+            f"equal, {sweeps} sweeps (plain loop {plain_sweeps}), kernel {ms:.3f} ms "
+            f"({ms / sweeps * 1e3:.1f} us/sweep), plain {pms:.3f} ms, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}; bytes alone "
+            f"{12 * e0.numel() / HBM_BYTES_PER_S * 1e6:.2f} us)")
+    main = k1[1]  # the internal Canny: most of K1's main-path work
+    results["K1"] = dict(err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                         sweeps=main["sweeps"],
+                         call=lambda: hyst.hysteresis_packed(*cases[1][1:]))
 
     # --- K2 / K3 on the real plane state with random centres and prefixes
+    _grey, _edges, variants = _pre_circles(torch.from_numpy(rgb).to(dev), cfg)
+    keep, _ = _variant_dedup(cfg, variants.shape[0])
+    planes = variants[keep]
     st = _plane_state_pool(planes, cfg)
     P = planes.shape[0]
     err = 0.0
-    times = {}
-    for cells, K in ((5, cfg.max_center_candidates), (3, cfg.max_ring_candidates)):
-        ys = torch.from_numpy(rng.integers(0, SIZE, (P, K))).to(dev)
-        xs = torch.from_numpy(rng.integers(0, SIZE, (P, K))).to(dev)
-        n_valid = np.concatenate([[0, K, 1], rng.integers(1, K, P - 3)])
-        valid = torch.from_numpy(np.arange(K)[None, :] < n_valid[:, None]).to(dev)
-        args = (st["emask"], st["sx"], st["sy"], ys, xs, valid,
-                cfg.circle_min_radius, cfg.circle_max_radius)
-        out_k = rescore_cuda.exact_rescore(*args, cells=cells)
-        out_p = rescore_cuda.exact_rescore_plain(*args, cells=cells)
-        err = max(err, check_equal(f"K2 cells={cells}", out_k, out_p))
-        ms = cuda_ms(lambda: rescore_cuda.exact_rescore(*args, cells=cells), 10)
-        pms = cuda_ms(lambda: rescore_cuda.exact_rescore_plain(*args, cells=cells), 2)
-        times[cells] = (ms, pms)
-        log("kernels", f"K2 rescore cells={cells} [{P},{K}] "
-            f"valid={int(valid.sum())}: equal, kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms")
-    results["K2"] = dict(err=err, ms=times[5][0], plain_ms=times[5][1])
+    k2 = []
+    main_args = None  # cells 5 at the config's radius: the main path's case
+    draws = [(5, cfg.max_center_candidates), (3, cfg.max_ring_candidates)]
+    draws = [(cells, K, rng.integers(0, SIZE, (P, K)), rng.integers(0, SIZE, (P, K)),
+              np.concatenate([[0, K, 1], rng.integers(1, K, P - 3)]))
+             for cells, K in draws]
+    for max_r in (cfg.circle_max_radius, 60):
+        for cells, K, ys_np, xs_np, n_valid in draws:
+            ys = torch.from_numpy(ys_np).to(dev)
+            xs = torch.from_numpy(xs_np).to(dev)
+            valid = torch.from_numpy(np.arange(K)[None, :] < n_valid[:, None]).to(dev)
+            args = (st["emask"], st["sx"], st["sy"], ys, xs, valid,
+                    cfg.circle_min_radius, max_r)
+            main_args = main_args or args
+            out_k = rescore_cuda.exact_rescore(*args, cells=cells)
+            out_p = rescore_cuda.exact_rescore_plain(*args, cells=cells)
+            label = f"cells={cells} [{P},{K}] max_r={max_r}"
+            err = max(err, check_equal(f"K2 {label}", out_k, out_p))
+            ms = cuda_ms(lambda: rescore_cuda.exact_rescore(*args, cells=cells), 10)
+            pms = cuda_ms(lambda: rescore_cuda.exact_rescore_plain(*args, cells=cells), 1)
+            steps = k2_walk_steps(st["emask"], ys, xs, valid, max_r, cells)
+            nbytes = k2_bytes(st["emask"], ys, xs, valid, max_r, cells)
+            b_ms, b_by = roofline(nbytes, K2_OPS_PER_STEP * steps, rate)
+            k2.append(dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                           bound_by=b_by))
+            log("kernels", f"K2 rescore {label} valid={int(valid.sum())}: "
+                f"equal, kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}: {steps} walk steps, "
+                f"{nbytes / 1e6:.1f} MB)")
+    results["K2"] = dict(err=err, ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"],
+                         bound_ms=k2[0]["bound_ms"], bound_by=k2[0]["bound_by"],
+                         call=lambda: rescore_cuda.exact_rescore(*main_args,
+                                                                 cells=5))
 
     K = cfg.max_peak_candidates
     ys = torch.from_numpy(rng.integers(0, SIZE, (P, K))).to(dev)
@@ -226,10 +405,61 @@ def phase_kernels(dev, rgb, cfg):
     err = check_equal("K3 radius", out_k, out_p)
     ms = cuda_ms(lambda: radius_cuda.radius_support_pool(*args), 10)
     pms = cuda_ms(lambda: radius_cuda.radius_support_pool_plain(*args), 2)
+    win = 2 * cfg.circle_max_radius + 1
+    nbytes = st["emask"].numel() + 17 * want.numel() + 4 * win * win
+    ops = k3_ops(*args)
+    b_ms, b_by = roofline(nbytes, ops, rate)
     log("kernels", f"K3 radius [{P},{K}] wanted={int(want.sum())}: equal, "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    results["K3"] = dict(err=err, ms=ms, plain_ms=pms)
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms * 1e3:.2f} us "
+        f"({b_by}: {ops} instructions, {nbytes / 1e6:.1f} MB)")
+    results["K3"] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by,
+                         call=lambda: radius_cuda.radius_support_pool(*args))
     return results
+
+
+KERNEL_NAMES = {"K1": "hysteresis_kernel", "K2": "rescore_kernel",
+                "K3": "radius_kernel"}
+
+
+def phase_profile(kernels, reps=5):
+    """Phase 6: torch.profiler over `reps` calls of each kernel's wrapper
+    at its main-path case: the device kernels and device-to-host copies of
+    a call, and the kernel's own device time. K1 must show one kernel and
+    one copy per call; a call with no device events recorded fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for k, name in KERNEL_NAMES.items():
+        call = kernels[k]["call"]
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not evs:
+            raise AssertionError(f"{k}: the profiler recorded no device "
+                                 "activity, so launches per call are unchecked")
+        copies = [e for e in evs if e.name.startswith("Memcpy")]
+        d2h = [e for e in copies if "DtoH" in e.name]
+        launched = [e for e in evs if not e.name.startswith(("Memcpy", "Memset"))]
+        mine = [e for e in launched if name in e.name]
+        kernel_ms = sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3
+        kernels[k]["kernel_ms"] = kernel_ms
+        others = sorted({e.name.split("(")[0][:60] for e in launched
+                         if name not in e.name})
+        log("profile", f"{k}: per call {len(launched) / reps:g} kernel "
+            f"launches ({len(mine) / reps:g} of {name}), "
+            f"{len(d2h) / reps:g} device-to-host copies; {name} device time "
+            f"{kernel_ms:.4f} ms; other kernels: {others}")
+        if k == "K1" and (len(launched) != reps or len(mine) != reps
+                          or len(d2h) != reps):
+            raise AssertionError("K1 is not one launch and one device read "
+                                 "per call")
 
 
 def phase_tables(dev):
@@ -402,6 +632,7 @@ def main() -> int:
     phase_tables(dev)
     launches, _wall, _stages = phase_main_path(dev, rgb, stones, cfg)
     phase_overflow(dev, cfg)
+    phase_profile(kernels)  # last: the profiler's hooks could slow the wall
 
     names = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
     zero = [k for k, m in names.items() if launches[m] <= 0]
@@ -421,10 +652,15 @@ def main() -> int:
     rows = []
     for k, (name, src, rep) in meta.items():
         r = kernels[k]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[names[k]],
-                     "max_abs_err": r["err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": launches[names[k]],
+               "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None,
+               "kernel_ms": r["kernel_ms"]}
+        if k == "K1":
+            row["sweeps"] = r["sweeps"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

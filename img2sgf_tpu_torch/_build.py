@@ -29,12 +29,17 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argtypes of each exported C function; every one returns a cudaError_t
+# argtypes of each exported C function; every one returns an int, a
+# cudaError_t except for the scratch-size query
 _SIGNATURES = {
-    # edge, t1, t2, gate, flag, G, H, W, iters, sweeps_out, stream
+    # G, H, W -> int32 words of K1's scratch buffer
+    "img2sgf_hysteresis_scratch": (_I, _I, _I),
+    # edge0, edge, t, gate, scratch, G, H, W, iters, sweeps_out, stream
     "img2sgf_hysteresis": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    # packed, ys, xs, nvalid, out, P, H, W, K, cells, min_r, max_r, kmax, stream
-    "img2sgf_rescore": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # emask, sx, sy, ys, xs, nvalid, rhat, out, P, H, W, K, cells, min_r,
+    # max_r, kmax, stream
+    "img2sgf_rescore": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P),
     # emask, ys, xs, want, binmap, r_out, s_out, P, H, W, K, min_r, max_r,
     # nbins, stream
     "img2sgf_radius": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -11,13 +11,15 @@ toward the candidate covers the whole window, and the opposite sign can
 only land from the central (4*reach+1)^2 block (the pruning proof in
 img2sgf_tpu/hough/circles.py exact_rescore, which this walk follows).
 
-On the H100 one block handles one candidate: it stages the packed
-(edge | sx+1024 << 1 | sy+1024 << 13) window of (2*(max_r+reach+2)+1)^2
-words (19 KB at max_r 30, cells 5) in shared memory, each thread walks its
-pixels, and landings go to per-cell shared-memory integer counters with
-atomicAdd, which is exact in any order. Blocks past a plane's valid prefix
-write zeros. The kernel is bound by the integer walk (about 9 radius steps
-per edge pixel), not by device memory.
+On the H100 a persistent grid walks only the valid (plane, candidate)
+pairs, one warp per pair (a prefix over each plane's valid count, built on
+the device), and zeroes the rows past each prefix. The warp lists the edge
+pixels of the candidate's window in its own shared-memory list and walks
+the list whenever it fills, so shared memory is bounded by the list and
+every radius runs; every lane walks one edge pixel, rhat comes from the
+per-offset table of _geometry, and landings go to the warp's integer
+counters, exact in any order. The kernel reads emask, sx and sy directly;
+only the plain version packs them into one word.
 """
 
 from __future__ import annotations
@@ -31,15 +33,7 @@ import torch
 from .. import _build
 
 launches = 0
-CHUNK = 256             # candidates per step of the plain version
-SMEM_BYTES = 48 * 1024  # K2's window must fit the default shared memory
-
-
-def max_radius(cells: int) -> int:
-    """Largest max_r whose packed window fits K2's shared memory."""
-    reach = cells // 2
-    win = math.isqrt(SMEM_BYTES // 4)
-    return (win - 1) // 2 - reach - 2
+CHUNK = 256  # candidates per step of the plain version
 
 
 @functools.lru_cache(maxsize=16)
@@ -119,15 +113,22 @@ def exact_rescore_plain(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     return out[:, :nc].to(torch.float32).reshape(P, K, cells, cells)
 
 
+@functools.lru_cache(maxsize=16)
+def _rhat_on(min_r: int, max_r: int, cells: int, device: str):
+    """K2's per-offset rhat table [win * win] int32, uploaded once."""
+    return torch.from_numpy(_geometry(min_r, max_r, cells)[5]).to(device)
+
+
 def exact_rescore_cuda(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
                        cells: int):
-    """Launch K2: blocks past each plane's valid prefix write zeros."""
+    """Launch K2 over the valid prefix of each plane; other rows are 0."""
     global launches
     lib = _build.load()
     P, H, W = emask.shape
     K = ys.shape[1]
-    reach, ext, win, _, _, _, kmax, _ = _geometry(min_r, max_r, cells)
-    packed = _pack(emask, sx, sy).contiguous()
+    kmax = _geometry(min_r, max_r, cells)[6]
+    rhat = _rhat_on(min_r, max_r, cells, str(emask.device))
+    emask, sx, sy = emask.contiguous(), sx.contiguous(), sy.contiguous()
     ys32 = ys.to(torch.int32).contiguous()
     xs32 = xs.to(torch.int32).contiguous()
     nvalid = valid.sum(dim=1, dtype=torch.int32).contiguous()
@@ -135,9 +136,10 @@ def exact_rescore_cuda(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
                       device=emask.device)
     if P and K:
         err = lib.img2sgf_rescore(
-            packed.data_ptr(), ys32.data_ptr(), xs32.data_ptr(),
-            nvalid.data_ptr(), out.data_ptr(), P, H, W, K, cells, min_r,
-            max_r, kmax, _build.stream_of(out))
+            emask.data_ptr(), sx.data_ptr(), sy.data_ptr(), ys32.data_ptr(),
+            xs32.data_ptr(), nvalid.data_ptr(), rhat.data_ptr(),
+            out.data_ptr(), P, H, W, K, cells, min_r, max_r, kmax,
+            _build.stream_of(out))
         _build.check(err, "rescore kernel")
         launches += 1
     return out.reshape(P, K, cells, cells)
@@ -151,18 +153,12 @@ def exact_rescore(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     ys/xs [P, K] int centres inside the plane, valid [P, K] bool, a live
     prefix per plane (K2 takes its length, so a mask with a gap raises).
     Returns [P, K, cells, cells] f32, zero past the prefix. CPU tensors take
-    the plain version; CUDA tensors launch K2. Both devices accept only the
-    max_r that K2 can hold (max_radius).
+    the plain version; CUDA tensors launch K2.
     """
     if cells not in (3, 5):
         raise ValueError("rescore patch must be 3x3 or 5x5")
     if min_r < 1:
         raise ValueError("min_r must be >= 1")
-    if max_r > max_radius(cells):
-        raise ValueError(f"K2 holds the (2*max_r+{2 * (cells // 2) + 5})^2 "
-                         f"window in {SMEM_BYTES // 1024} KB of shared memory: "
-                         f"max_r <= {max_radius(cells)} at cells={cells}, "
-                         f"got {max_r}")
     if emask.ndim != 3 or sx.shape != emask.shape or sy.shape != emask.shape:
         raise ValueError("emask, sx, sy must be matching [P, H, W]")
     if ys.ndim != 2 or ys.shape != xs.shape or ys.shape != valid.shape \

@@ -17,12 +17,15 @@ can bind (photo-textured scans need hundreds of sweeps), so the kernel
 keeps the sweep semantics and not only the fixed point: a tile-local
 fixed point would give another result whenever the cap binds.
 
-On the H100 a sweep is three launches (row fill, column fill, gated
-dilation that also raises a device "changed" flag) and a 4-byte read of the
-flag. Each fill launch is one block per line with the line in shared
-memory and a log-doubling segmented scan; a sweep moves about 6 words per
-pixel through device memory, so a 768x768 plane is bound by launch and
-flag-read latency, not bandwidth.
+On the H100 one call is one persistent cooperative launch that runs every
+sweep on the device, with grid-wide barriers between the row fill, the
+column summaries and the column fill (which also does the gated dilation),
+and one 4-byte read of the sweep count afterwards. The fills are segmented
+scans that each lane runs over its own words (a row segment staged through
+shared memory, a band of a column in registers), with the carries between
+lanes, segments and bands composed by the scan's associative operator, so
+no line has to fit anywhere and any H, W runs (csrc/hysteresis.cu says
+more).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .. import _build
 from .common import shift2d
 
 launches = 0      # K1 host calls that launched the kernel (each runs all sweeps)
-last_sweeps = 0   # sweeps the last K1 call ran
+last_sweeps = 0   # sweeps the last call ran (kernel or plain version)
 
 
 def _shift(x, k: int, dim: int):
@@ -72,33 +75,38 @@ def _dilate8_or(x):
 
 def hysteresis_packed_plain(edge0, gate, iters: int):
     """Plain PyTorch sweeps on int32 words [G, H, W]; returns the words."""
+    global last_sweeps
     edge = edge0
+    last_sweeps = 0
     for _ in range(iters):
         new = _seg_fill(edge, gate, -1)
         new = _seg_fill(new, gate, -2)
         new = (_dilate8_or(new) & gate) | new
         changed = bool((new != edge).any())
         edge = new
+        last_sweeps += 1
         if not changed:
             break
     return edge
 
 
 def hysteresis_packed_cuda(edge0, gate, iters: int):
-    """Launch K1 on CUDA int32 words [G, H, W]; returns new words."""
+    """Launch K1 on CUDA int32 words [G, H, W]: one launch and one device
+    read per call, whatever the number of sweeps. Returns new words."""
     global launches, last_sweeps
+    if iters <= 0 or edge0.numel() == 0:
+        last_sweeps = 0
+        return edge0.clone()
     lib = _build.load()
     G, H, W = edge0.shape
-    if max(H, W) > 6144:
-        raise ValueError(f"K1 holds one line in shared memory: H, W <= 6144, got {H}x{W}")
-    edge = edge0.clone()
-    t1 = torch.empty_like(edge)
-    t2 = torch.empty_like(edge)
-    flag = torch.empty(1, dtype=torch.int32, device=edge.device)
+    edge = torch.empty_like(edge0)
+    t = torch.empty_like(edge0)
+    scratch = torch.empty(lib.img2sgf_hysteresis_scratch(G, H, W),
+                          dtype=torch.int32, device=edge0.device)
     sweeps = ctypes.c_int(0)
     err = lib.img2sgf_hysteresis(
-        edge.data_ptr(), t1.data_ptr(), t2.data_ptr(), gate.data_ptr(),
-        flag.data_ptr(), G, H, W, int(iters), ctypes.addressof(sweeps),
+        edge0.data_ptr(), edge.data_ptr(), t.data_ptr(), gate.data_ptr(),
+        scratch.data_ptr(), G, H, W, int(iters), ctypes.addressof(sweeps),
         _build.stream_of(edge))
     _build.check(err, "hysteresis kernel")
     launches += 1

@@ -33,7 +33,6 @@ from ..hough.circles import (
     radius_support_pool,
     vote_accumulator_pool_labels,
 )
-from ..hough import rescore_cuda
 from ..hough.erase import erase_circles
 from ..hough.lines import hough_lines_intercepts
 from ..ops.blur import blur_pyramid
@@ -114,11 +113,6 @@ def _check_ported(cfg: DetectionConfig):
     if cfg.propose_block != 1:
         raise ValueError("propose_block > 1 (block-max proposal compaction) "
                          "is not ported")
-    if cfg.circle_max_radius > rescore_cuda.max_radius(5):
-        raise ValueError(f"circle_max_radius > {rescore_cuda.max_radius(5)} "
-                         f"is not ported: the rescore kernel's window must "
-                         f"fit {rescore_cuda.SMEM_BYTES // 1024} KB of shared "
-                         f"memory")
 
 
 def _plane_state_pool(planes, cfg: DetectionConfig):

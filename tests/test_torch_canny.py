@@ -122,6 +122,149 @@ def test_plain_hysteresis_pool_sweeps(iters):
     _eq(got, want)
 
 
+def _scan_lanes(a, g, up):
+    """A warp's shuffle scan over the last axis (32 lanes), as scan_up /
+    scan_down in csrc/hysteresis.cu: log-step (a, g) composition."""
+    a, g = a.copy(), g.copy()
+    d = 1
+    while d < 32:
+        a0, g0 = a.copy(), g.copy()
+        if up:
+            a[..., d:] |= g0[..., d:] & a0[..., :-d]
+            g[..., d:] &= g0[..., :-d]
+        else:
+            a[..., :-d] |= g0[..., :-d] & a0[..., d:]
+            g[..., :-d] &= g0[..., d:]
+        d *= 2
+    return a, g
+
+
+def _seq_fill(a, g, carry, forward):
+    """f[i] = a[i] | g[i] & f[i -+ 1] along the last axis from `carry`."""
+    out = np.empty_like(a)
+    order = range(a.shape[-1]) if forward else reversed(range(a.shape[-1]))
+    for k in order:
+        carry = a[..., k] | (g[..., k] & carry)
+        out[..., k] = carry
+    return out
+
+
+def _fill_lanes(a, g, carry, forward):
+    """fill_fwd / fill_bwd of csrc/hysteresis.cu on [..., 32 lanes, words]:
+    each lane scans its own words, a warp scan of the lane summaries gives
+    each lane its carry, a second pass fills. Returns (fill, outgoing
+    carry)."""
+    zero = np.zeros(a.shape[:-1], np.int32)
+    x, y = _scan_lanes(_seq_fill(a, g, zero, forward)[..., -1 if forward else 0],
+                       np.bitwise_and.reduce(g, axis=-1), forward)
+    c = carry[..., None]
+    cin = np.empty_like(x)
+    if forward:
+        cin[..., 0], cin[..., 1:] = carry, x[..., :-1] | (y[..., :-1] & c)
+    else:
+        cin[..., -1], cin[..., :-1] = carry, x[..., 1:] | (y[..., 1:] & c)
+    out = _seq_fill(a, g, cin, forward)
+    edge = -1 if forward else 0
+    return out, x[..., edge] | (y[..., edge] & carry)
+
+
+def _compose(ff, bb, ga):
+    """Carries into each unit of the last axis from the units' summaries."""
+    n = ff.shape[-1]
+    cf, cb = np.zeros_like(ff), np.zeros_like(bb)
+    for j in range(1, n):
+        cf[..., j] = ff[..., j - 1] | (ga[..., j - 1] & cf[..., j - 1])
+    for j in range(n - 2, -1, -1):
+        cb[..., j] = bb[..., j + 1] | (ga[..., j + 1] & cb[..., j + 1])
+    return cf, cb
+
+
+def _k1_row_fill(src, gate, per_lane):
+    """K1's row phase: segments of 32 lanes x per_lane words, segment
+    summaries, composed carries, forward then backward fill."""
+    G, H, W = src.shape
+    seg = 32 * per_lane
+    nseg = -(-W // seg)
+    pad = ((0, 0), (0, 0), (0, nseg * seg - W))
+    shape = (G, H, nseg, 32, per_lane)
+    a = np.pad(src, pad).reshape(shape)
+    g = np.pad(gate, pad).reshape(shape)
+    zero = np.zeros(shape[:3], np.int32)
+    f, ff = _fill_lanes(a, g, zero, True)
+    _, bb = _fill_lanes(f, g, zero, False)
+    ga = np.bitwise_and.reduce(g.reshape(G, H, nseg, -1), axis=-1)
+    cf, cb = _compose(ff, bb, ga)
+    out = _fill_lanes(_fill_lanes(a, g, cf, True)[0], g, cb, False)[0]
+    return out.reshape(G, H, -1)[..., :W]
+
+
+def _k1_col_dilate(t, gate, band):
+    """K1's column phase fused with the gated dilation: band summaries and
+    composed carries; for the dilation, the row above a band is its forward
+    carry and the row below its backward carry. Returns the new words."""
+    G, H, W = t.shape
+    nb = -(-H // band)
+    pad = ((0, 0), (0, nb * band - H), (0, 0))
+    a = np.moveaxis(np.pad(t, pad).reshape(G, nb, band, W), 2, -1)
+    g = np.moveaxis(np.pad(gate, pad).reshape(G, nb, band, W), 2, -1)
+    zero = np.zeros((G, nb, W), np.int32)
+    cf, cb = (np.moveaxis(c, -1, 1) for c in _compose(
+        np.moveaxis(_seq_fill(a, g, zero, True)[..., -1], 1, -1),
+        np.moveaxis(_seq_fill(a, g, zero, False)[..., 0], 1, -1),
+        np.moveaxis(np.bitwise_and.reduce(g, axis=-1), 1, -1)))
+    tb = _seq_fill(_seq_fill(a, g, cf, True), g, cb, False)
+    rows = np.concatenate([cf[..., None], tb, cb[..., None]], -1)
+    hor = rows.copy()
+    hor[:, :, 1:] |= rows[:, :, :-1]
+    hor[:, :, :-1] |= rows[:, :, 1:]
+    new = ((hor[..., :-2] | hor[..., 1:-1] | hor[..., 2:]) & g) | tb
+    return np.moveaxis(new, -1, 2).reshape(G, -1, W)[:, :H]
+
+
+def k1_emulate(edge0, gate, iters, per_lane, band):
+    """numpy emulation of K1's decomposition (csrc/hysteresis.cu); returns
+    (words, sweeps)."""
+    edge = edge0
+    for s in range(iters):
+        new = _k1_col_dilate(_k1_row_fill(edge, gate, per_lane), gate, band)
+        changed = bool((new != edge).any())
+        edge = new
+        if not changed:
+            return edge, s + 1
+    return edge, iters
+
+
+@pytest.mark.parametrize("geometry", [(32, 32), (2, 4)])
+@pytest.mark.parametrize("iters", [1, 2, 3, 256])
+def test_k1_decomposition_equals_plain(iters, geometry):
+    """K1's segment/band decomposition with composed carries equals the
+    plain sweeps, sweep count included: the kernel's own segments (32 lanes
+    x 32 words) and bands (32 rows), and small ones that split every line
+    into many parts."""
+    per_lane, band = geometry
+    stairs = [staircase(40 + i, H=70, W=150) for i in range(5)]
+    rng = np.random.default_rng(iters)
+    cand = rng.random((70, 150)) < 0.45
+    strong = cand & (rng.random(cand.shape) < 0.01)
+    # full-length runs seeded at either end: one sweep fills each through
+    # every segment and band, in both directions
+    lines = np.zeros((70, 150), bool)
+    lines[:, [3, 77]] = lines[[5, 60], :] = True
+    lines[30:40, 3] = lines[5, 100:110] = False
+    seeds = np.zeros_like(lines)
+    seeds[[0, 69], [3, 77]] = seeds[[5, 60], [149, 0]] = True
+    planes = [(s, c) for s, c in stairs] + [(strong, cand), (seeds, lines)]
+    e0 = tcanny.pack_planes(torch.from_numpy(np.stack([s & c for s, c in planes])))
+    gate = tcanny.pack_planes(torch.from_numpy(np.stack([c for _, c in planes])))
+    want = hysteresis_cuda.hysteresis_packed_plain(e0, gate, iters)
+    want_sweeps = hysteresis_cuda.last_sweeps
+    got, sweeps = k1_emulate(e0.numpy(), gate.numpy(), iters, per_lane, band)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert sweeps == want_sweeps
+    if iters == 256:
+        assert 3 < sweeps < 256
+
+
 def test_pack_unpack_round_trip():
     x = np.random.default_rng(5).random((40, 7, 9)) < 0.5
     words = tcanny.pack_planes(torch.from_numpy(x))

@@ -218,6 +218,26 @@ def test_rescore_plain_vs_xla_and_pallas(cells):
     assert got.sum() > 0
 
 
+@pytest.mark.parametrize("cells", [3, 5])
+@pytest.mark.parametrize("max_r", [55, 60])
+def test_rescore_large_radius_vs_xla(max_r, cells):
+    """Radii past the Pallas kernel's geometry (the JAX package takes its
+    XLA rescore there): the port's windows of (2*max_r+2*reach+5)^2 words
+    cover the whole plane and still equal XLA on the valid rows."""
+    emask, sx, sy, ys, xs, valid = _rescore_inputs(max_r + cells, K=24,
+                                                    H=110, W=96)
+    got = rescore_cuda.exact_rescore(T(emask), T(sx), T(sy), T(ys), T(xs),
+                                     T(valid), 1, max_r, cells=cells).numpy()
+    assert not got[~valid].any()
+    for p in range(2):
+        xla = jc.exact_rescore(jnp.asarray(emask[p]), jnp.asarray(sx[p]),
+                               jnp.asarray(sy[p]), jnp.asarray(ys[p]),
+                               jnp.asarray(xs[p]), 1, max_r, cells=cells,
+                               valid=jnp.asarray(valid[p]))
+        _eq(got[p], xla, mask=valid[p])
+    assert got.sum() > 0
+
+
 def _radius_inputs(seed, P=2, K=24, H=90, W=104):
     rng = np.random.default_rng(seed)
     emask = rng.random((P, H, W)) < 0.1
@@ -395,9 +415,6 @@ def test_wrapper_checks():
         gap = valid.clone()
         gap[1, 0] = False
         rescore_cuda.exact_rescore(emask, sx, sy, ys, xs, gap, 1, 30)
-    with pytest.raises(ValueError, match="shared memory"):
-        rescore_cuda.exact_rescore(emask, sx, sy, ys, xs, valid, 1, 51,
-                                   cells=5)
     before = (rescore_cuda.launches, radius_cuda.launches)
     rescore_cuda.exact_rescore(emask, sx, sy, ys, xs, valid, 1, 30)
     radius_cuda.radius_support_pool(emask, ys, xs, valid, 1, 30)

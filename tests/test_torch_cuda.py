@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import staircase_plane
 from img2sgf_tpu_torch.config import DetectionConfig
 from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
 from img2sgf_tpu_torch.ops import hysteresis_cuda
@@ -27,24 +28,61 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("iters", [1, 3, 256])
-def test_k1_equals_plain(dev, iters):
-    rng = np.random.default_rng(iters)
-    cand = rng.random((12, 90, 130)) < 0.45
-    strong = cand & (rng.random(cand.shape) < 0.01)
+def _k1_case(dev, strong, cand, iters):
+    """K1 on the card against the plain loop: equal words, one launch per
+    call and the plain loop's sweep count."""
     e0 = pack_planes(torch.from_numpy(strong & cand).to(dev))
     gate = pack_planes(torch.from_numpy(cand).to(dev))
     before = hysteresis_cuda.launches
     got = hysteresis_cuda.hysteresis_packed(e0, gate, iters)
     assert hysteresis_cuda.launches == before + 1
+    sweeps = hysteresis_cuda.last_sweeps
     want = hysteresis_cuda.hysteresis_packed_plain(e0, gate, iters)
     assert torch.equal(got, want)
+    assert sweeps == hysteresis_cuda.last_sweeps
+    return sweeps
+
+
+@pytest.mark.parametrize("iters", [1, 3, 256])
+def test_k1_equals_plain(dev, iters):
+    rng = np.random.default_rng(iters)
+    cand = rng.random((12, 90, 130)) < 0.45
+    strong = cand & (rng.random(cand.shape) < 0.01)
+    _k1_case(dev, strong, cand, iters)
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3, 256])
+def test_k1_staircase_equals_plain(dev, iters):
+    """Planes wider than a row segment and taller than a column band, where
+    the cap binds (iters < 256) or the sweeps run to the fixed point."""
+    rng = np.random.default_rng(10 + iters)
+    pairs = [staircase_plane(rng, 120, 1500) for _ in range(8)]
+    strong = np.stack([s for s, _ in pairs])
+    cand = np.stack([c for _, c in pairs])
+    sweeps = _k1_case(dev, strong, cand, iters)
+    assert sweeps == iters if iters < 256 else 3 < sweeps < 256
+
+
+def test_k1_past_the_old_line_cap(dev):
+    """[1, 8, 6400] words: rows of 6400 words, past the 6144 cap of a kernel
+    that held a whole line in shared memory."""
+    rng = np.random.default_rng(6400)
+    cand = rng.random((8, 8, 6400)) < 0.5
+    cand[:, 3, :] = True  # one gated run along a whole row
+    strong = np.zeros_like(cand)
+    strong[:, 3, -1] = True
+    strong |= cand & (rng.random(cand.shape) < 0.002)
+    _k1_case(dev, strong, cand, 256)
 
 
 @pytest.mark.parametrize("cells", [3, 5])
-def test_k2_equals_plain(dev, cells):
-    rng = np.random.default_rng(cells)
-    P, H, W, K = 3, 100, 120, 200
+@pytest.mark.parametrize("max_r", [30, 60])
+def test_k2_equals_plain(dev, cells, max_r):
+    """One full plane, one all-invalid plane and a partial one; K = 333 is
+    no multiple of the persistent grid, and at max_r 60 a window's edge
+    list is flushed several times per candidate."""
+    rng = np.random.default_rng(cells + max_r)
+    P, H, W, K = 3, 160, 180, 333
     emask = rng.random((P, H, W)) < 0.12
     ang = rng.uniform(0, 2 * np.pi, (P, H, W))
     sx = (np.rint(1024 * np.cos(ang)).astype(np.int32)) * emask
@@ -55,9 +93,12 @@ def test_k2_equals_plain(dev, cells):
     args = [torch.from_numpy(np.asarray(a)).to(dev)
             for a in (emask, sx.astype(np.int32), sy.astype(np.int32), ys, xs,
                       valid)]
-    got = rescore_cuda.exact_rescore(*args, 1, 30, cells=cells)
-    want = rescore_cuda.exact_rescore_plain(*args, 1, 30, cells=cells)
+    before = rescore_cuda.launches
+    got = rescore_cuda.exact_rescore(*args, 1, max_r, cells=cells)
+    assert rescore_cuda.launches == before + 1
+    want = rescore_cuda.exact_rescore_plain(*args, 1, max_r, cells=cells)
     assert torch.equal(got, want)
+    assert float(want.sum()) > 0
 
 
 def test_k3_equals_plain(dev):
@@ -91,9 +132,12 @@ def _diagram(size=192, n=9):
     return np.repeat(img.astype(np.uint8)[:, :, None], 3, axis=2)
 
 
-def test_detect_board_cuda_equals_cpu(dev):
+@pytest.mark.parametrize("max_r", [30, 55])
+def test_detect_board_cuda_equals_cpu(dev, max_r):
+    """The default radius range, and 55, which K2's window no longer has to
+    fit in a fixed amount of shared memory for."""
     rgb = _diagram()
-    cfg = DetectionConfig()
+    cfg = DetectionConfig().replace(circle_max_radius=max_r)
     a = detect_board(rgb, cfg, 31, device=dev)
     b = detect_board(rgb, cfg, 31, device="cpu")
     for f in dataclasses.fields(a):

@@ -128,9 +128,23 @@ def test_stage_timings_and_result_type(tiny_results):
     _compare(tiny_results[0], res)
 
 
+def test_detect_board_large_radius_every_field():
+    """circle_max_radius 55 (past the Pallas rescore's geometry, where the
+    JAX package takes its XLA rescore) runs on the port and equals the JAX
+    package in every field, with the board and its stones found."""
+    jcfg = dataclasses.replace(TINY, circle_max_radius=55)
+    rgb = synth_board(size=192, n=5, stones=((1, 2, 0), (3, 3, 255), (2, 1, 0)))
+    jres = detect_board_jit(jnp.asarray(rgb), jcfg, 28.0)
+    tres = detect_board(rgb, from_jax_config(dataclasses.asdict(jcfg)), 28.0,
+                        device="cpu")
+    _compare(jres, tres)
+    assert bool(tres.board_ready) and int(tres.hsize) == 5
+    b = tres.detected_board.numpy()
+    assert b[1, 2] == 1 and b[3, 3] == 2 and b[2, 1] == 1
+
+
 @pytest.mark.parametrize("change", [dict(propose_block=2),
-                                    dict(circle_max_radius=31),
-                                    dict(circle_max_radius=55)])
+                                    dict(circle_max_radius=31)])
 def test_unported_config_values_raise(change):
     """Values that select a JAX path the port lacks raise, not ignored."""
     cfg = DetectionConfig().replace(**change)
