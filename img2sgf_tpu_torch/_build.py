@@ -40,10 +40,10 @@ _SIGNATURES = {
     # max_r, kmax, stream
     "img2sgf_rescore": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P),
-    # emask, ys, xs, want, binmap, r_out, s_out, P, H, W, K, min_r, max_r,
-    # nbins, stream
-    "img2sgf_radius": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _P),
+    # emask, ys, xs, want, binmap, spans, r_out, s_out, P, H, W, K, min_r,
+    # max_r, nbins, idx64, stream -> cudaError_t, or -1: too many bins
+    "img2sgf_radius": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """cv2 radius estimate and run support: the plain PyTorch version and the
 wrapper of CUDA kernel K3 (csrc/radius.cu).
 
-K3 replaces the Pallas kernel img2sgf_tpu/hough/radius_pallas.py
+K3 replaces the Pallas kernel img2sgf_tpu/hough/radius_pallas.py:119
 (radius_words_pallas, called by radius_support_pallas, body
 _build_kernel.kern), and also does the run scan (_hist10_scan) that the JAX
 package runs in XLA after it. For each wanted candidate centre it builds
@@ -9,15 +9,25 @@ OpenCV 4.x/5.x's radius histogram (10 bins per dr over the float32 distance
 of every edge pixel in the (2*max_r+1)^2 window from (cx+.5, cy+.5); 290
 bins at r in [1, 30]) and scans it into (r_best, support).
 
-Every window pixel's bin is static, so the bin of each window offset is a
-[win*win] int32 map (-1 outside the annulus) built on the host from
-_hist10_tables and uploaded once. On the H100 one block handles one
-candidate: threads add edge pixels into a shared-memory int histogram with
-atomicAdd, then one thread runs the scan in float32 with the same
-operations as _hist10_scan: the run radius is one explicit fused
-multiply-add, as the reference rounds it, and the library is built with
---fmad=false so that no other product is contracted into one. The kernel is bound by
-the 3721 window reads per candidate, which mostly hit L1/L2.
+Every window pixel's bin is static: _bin_map gives the bin of each window
+offset (-1 outside the annulus), and _row_spans derives from it up to two
+column spans per window row that cover the annulus exactly; both are built
+on the host and uploaded once. The kernel is bound by the bytes of the
+mask and the per-slot arrays, or by an edge test per in-plane annulus pixel
+and a lookup and a count per edge pixel, and stays far above both: each
+candidate is a chain of dependent warp instructions. On the H100 a
+persistent grid gives every wanted candidate one warp (each warp ballots
+its own strided sample of slots, so none works on an unwanted one); the
+warp reads its window's rows along the spans as aligned 16-byte chunks,
+adds edge pixels into its own shared-memory histogram, and runs the scan
+warp-parallel where it can: one pass builds the integer prefix and a table
+of the highest nonempty bin below each bin, so each of the scan's steps is
+one shared-memory read. The scan's float32 operations are those of
+_hist10_scan: the run radius is one explicit fused multiply-add, as the
+reference rounds it, and the library is built with --fmad=false so that no
+other product is contracted into one. A call is one kernel launch and no
+device read; any want mask, any P and any radius range whose two int32
+tables per warp fit shared memory run.
 """
 
 from __future__ import annotations
@@ -34,10 +44,10 @@ CHUNK = 512  # candidates per step of the plain version
 _RUN_SCALE = float(np.float32(0.05))  # float32 1/(2*10), as XLA folds it
 
 
-@functools.lru_cache(maxsize=32)
-def _hist10_tables(min_r: int, max_r: int, dr: float = 1.0):
-    """Static distance->bin one-hot for OpenCV 4.x/5.x's radius histogram;
-    numpy float32, verbatim from img2sgf_tpu/hough/circles.py."""
+def _hist10_bins(min_r: int, max_r: int, dr: float = 1.0):
+    """Each window offset's bin in OpenCV 4.x/5.x's radius histogram and
+    whether it lies in the annulus, as flat [win*win] arrays; numpy float32,
+    verbatim from img2sgf_tpu/hough/circles.py _hist10_tables."""
     nbins_per_dr = 10
     nbins = int(round((max_r - min_r) / dr * nbins_per_dr))
     ext = max_r
@@ -51,17 +61,26 @@ def _hist10_tables(min_r: int, max_r: int, dr: float = 1.0):
     b = np.rint((d - np.float32(min_r)) / np.float32(dr)
                 * nbins_per_dr).astype(np.int64)
     np.clip(b, 0, nbins - 1, out=b)
+    return sel.ravel(), b.ravel(), win, nbins
+
+
+@functools.lru_cache(maxsize=32)
+def _hist10_tables(min_r: int, max_r: int, dr: float = 1.0):
+    """Static distance->bin one-hot [win*win, nbins] float32 for OpenCV
+    4.x/5.x's radius histogram, as the JAX package builds it."""
+    sel, b, win, nbins = _hist10_bins(min_r, max_r, dr)
     onehot = np.zeros((win * win, nbins), np.float32)
-    onehot[np.arange(win * win), b.ravel()] = sel.ravel().astype(np.float32)
+    onehot[np.arange(win * win), b] = sel.astype(np.float32)
     return onehot, win, nbins
 
 
 @functools.lru_cache(maxsize=32)
 def _bin_map(min_r: int, max_r: int):
-    """[win*win] int32 bin of each window offset, -1 outside the annulus."""
-    onehot, win, nbins = _hist10_tables(min_r, max_r)
-    sel = onehot.sum(axis=1) > 0
-    return np.where(sel, onehot.argmax(axis=1), -1).astype(np.int32), win, nbins
+    """[win*win] int32 bin of each window offset, -1 outside the annulus:
+    the column of each row's one in _hist10_tables' one-hot, without
+    building the one-hot (win^2 * nbins floats, 160 GB at max_r 1000)."""
+    sel, b, win, nbins = _hist10_bins(min_r, max_r)
+    return np.where(sel, b, -1).astype(np.int32), win, nbins
 
 
 def _hist10_scan(counts, min_r: int):
@@ -136,30 +155,66 @@ def radius_support_pool_plain(emask, ys, xs, want, min_r: int, max_r: int):
     return r_out.reshape(P, K), s_out.reshape(P, K)
 
 
+@functools.lru_cache(maxsize=32)
+def _row_spans(min_r: int, max_r: int):
+    """[win, 4] int32 (dx0, dx1, dx2, dx3) per window row: the columns dx0..dx1
+    and dx2..dx3 (offsets in [-max_r, max_r], left run first) of that row's
+    part of _bin_map's annulus; an empty run is (1, 0). Derived from the bin
+    map itself, so the spans cover exactly its >= 0 set."""
+    bmap, win, _ = _bin_map(min_r, max_r)
+    sel = bmap.reshape(win, win) >= 0
+    spans = np.tile(np.array([1, 0, 1, 0], np.int32), (win, 1))
+    for u in range(win):
+        cols = np.flatnonzero(sel[u])
+        if not cols.size:
+            continue
+        cut = np.flatnonzero(np.diff(cols) > 1) + 1
+        runs = np.split(cols, cut)
+        if len(runs) > 2:
+            raise AssertionError(f"annulus row {u} has {len(runs)} runs")
+        for i, run in enumerate(runs):
+            spans[u, 2 * i:2 * i + 2] = (run[0] - max_r, run[-1] - max_r)
+    return spans
+
+
 @functools.lru_cache(maxsize=8)
-def _bin_map_on(min_r: int, max_r: int, device: str):
+def _tables_on(min_r: int, max_r: int, device: str):
+    """K3's bin map and row spans on the device, uploaded once."""
     bmap_np, win, nbins = _bin_map(min_r, max_r)
-    return torch.from_numpy(bmap_np).to(device), win, nbins
+    return (torch.from_numpy(bmap_np).to(device),
+            torch.from_numpy(_row_spans(min_r, max_r)).to(device), nbins)
+
+
+_TOO_MANY_BINS = -1  # img2sgf_radius: one warp's tables exceed shared memory
 
 
 def radius_support_cuda(emask, ys, xs, want, min_r: int, max_r: int):
-    """Launch K3 over the pool; rows not wanted are 0."""
+    """Launch K3 over the pool; rows not wanted are 0. One launch, no device
+    read; ys and xs are read as they are (int32 or int64)."""
     global launches
     lib = _build.load()
     P, H, W = emask.shape
     K = ys.shape[1]
-    bmap, win, nbins = _bin_map_on(min_r, max_r, str(emask.device))
+    if ys.dtype != xs.dtype or ys.dtype not in (torch.int32, torch.int64):
+        raise TypeError("K3 takes ys and xs of one dtype, int32 or int64; "
+                        f"got {ys.dtype} and {xs.dtype}")
+    bmap, spans, nbins = _tables_on(min_r, max_r, str(emask.device))
     em = emask.contiguous().view(torch.uint8)
     wn = want.contiguous().view(torch.uint8)
-    ys32 = ys.to(torch.int32).contiguous()
-    xs32 = xs.to(torch.int32).contiguous()
+    ys, xs = ys.contiguous(), xs.contiguous()
     r_out = torch.empty((P, K), dtype=torch.float32, device=emask.device)
     s_out = torch.empty((P, K), dtype=torch.float32, device=emask.device)
     if P and K:
         err = lib.img2sgf_radius(
-            em.data_ptr(), ys32.data_ptr(), xs32.data_ptr(), wn.data_ptr(),
-            bmap.data_ptr(), r_out.data_ptr(), s_out.data_ptr(), P, H, W, K,
-            min_r, max_r, nbins, _build.stream_of(r_out))
+            em.data_ptr(), ys.data_ptr(), xs.data_ptr(), wn.data_ptr(),
+            bmap.data_ptr(), spans.data_ptr(), r_out.data_ptr(),
+            s_out.data_ptr(), P, H, W, K, min_r, max_r, nbins,
+            int(ys.dtype == torch.int64), _build.stream_of(r_out))
+        if err == _TOO_MANY_BINS:
+            raise ValueError(
+                f"radius range [{min_r}, {max_r}] needs {nbins} histogram "
+                f"bins; one warp's two int32 tables ({8 * nbins} bytes) do "
+                "not fit this card's shared memory per block")
         _build.check(err, "radius kernel")
         launches += 1
     return r_out, s_out
@@ -168,9 +223,9 @@ def radius_support_cuda(emask, ys, xs, want, min_r: int, max_r: int):
 def radius_support_pool(emask, ys, xs, want, min_r: int, max_r: int):
     """cv2 radius estimate + run support at given centres over a pool:
     emask [P, H, W] bool, ys/xs [P, K] int centres inside the plane, want
-    [P, K] bool. Returns
-    (r_best, support) [P, K] f32, zeros where not wanted. CPU tensors take
-    the plain version; CUDA tensors launch K3."""
+    [P, K] bool, any mask. Returns (r_best, support) [P, K] f32, zeros
+    where not wanted. CPU tensors take the plain version; CUDA tensors
+    launch K3 (ys and xs then int32 or int64, of one dtype)."""
     if min_r < 1 or max_r < min_r:
         raise ValueError(f"bad radius range [{min_r}, {max_r}]")
     if emask.ndim != 3 or emask.dtype != torch.bool:

@@ -134,14 +134,14 @@ def _plane_state_pool(planes, cfg: DetectionConfig):
                 sy=torch.where(emask, sy, zero), acc=acc)
 
 
-def _circles_from_state(st, cfg: DetectionConfig, top_k: int | None = None,
-                        prov_budget: int | None = None,
-                        peak_budget: int | None = None,
-                        dedupe_first: bool = False,
-                        margin_filter: bool = False):
-    """Budget-dependent circle selection from plane state. Returns
-    (circles [P, max_out, 3], valid [P, max_out], sat [P]): sat flags planes
-    where a capacity truncated candidates."""
+def _select_candidates(st, cfg: DetectionConfig, top_k: int | None = None,
+                       prov_budget: int | None = None,
+                       peak_budget: int | None = None,
+                       dedupe_first: bool = False,
+                       margin_filter: bool = False):
+    """Proposals and exact candidates from plane state: the inputs of the
+    radius stage. Returns (ys_c, xs_c, valid2 [P, peak_budget], sat [P]):
+    sat flags planes where a capacity truncated candidates."""
     H, W = st["acc"].shape[-2], st["acc"].shape[-1]
     top_k = cfg.max_center_candidates if top_k is None else top_k
     prov_budget = cfg.max_ring_candidates if prov_budget is None else prov_budget
@@ -161,6 +161,14 @@ def _circles_from_state(st, cfg: DetectionConfig, top_k: int | None = None,
         cfg.circle_acc_threshold, H, W, prov_budget=prov_budget,
         peak_budget=peak_budget, dedupe_first=dedupe_first,
     )
+    return ys_c, xs_c, valid2, psat | ring_sat
+
+
+def _circles_from_state(st, cfg: DetectionConfig, **budgets):
+    """Budget-dependent circle selection from plane state (the keyword
+    arguments of _select_candidates). Returns (circles [P, max_out, 3],
+    valid [P, max_out], sat [P])."""
+    ys_c, xs_c, valid2, sat = _select_candidates(st, cfg, **budgets)
     r_best, support = radius_support_pool(
         st["emask"], ys_c, xs_c, valid2, cfg.circle_min_radius,
         cfg.circle_max_radius)
@@ -169,17 +177,26 @@ def _circles_from_state(st, cfg: DetectionConfig, top_k: int | None = None,
         cfg.circle_min_dist, cfg.max_circles_per_variant,
         packed_sort=cfg.circle_max_radius <= 44,
     )
-    return circles, valid, psat | ring_sat
+    return circles, valid, sat
+
+
+def _overflow_budgets(cfg: DetectionConfig):
+    """The selection arguments of the overflow rerun: the big budgets, with
+    dedupe_first (the big pass has no further rerun)."""
+    return dict(
+        top_k=cfg.overflow_center_candidates,
+        prov_budget=max(cfg.overflow_ring_candidates, cfg.max_ring_candidates),
+        peak_budget=max(cfg.overflow_peak_candidates, cfg.max_peak_candidates),
+        dedupe_first=True, margin_filter=True)
 
 
 def _circles_pooled(st, cfg: DetectionConfig):
     """Selection with the saturation-gated overflow rerun: base budgets for
     every plane, then the saturated planes alone again at the overflow
-    budgets (dedupe_first: the big pass has no further rerun), replacing
-    their base results. Takes the plane state (_plane_state_pool), which
-    both passes share, so that callers can time the two stages apart."""
-    kb = cfg.overflow_center_candidates
-    if kb <= cfg.max_center_candidates:
+    budgets (_overflow_budgets), replacing their base results. Takes the
+    plane state (_plane_state_pool), which both passes share, so that
+    callers can time the two stages apart."""
+    if cfg.overflow_center_candidates <= cfg.max_center_candidates:
         circles, valid, _ = _circles_from_state(
             st, cfg, dedupe_first=True, margin_filter=True)
         return circles, valid
@@ -187,12 +204,8 @@ def _circles_pooled(st, cfg: DetectionConfig):
     redo = sat.nonzero()[:, 0]
     if redo.numel():
         sub = {k: v[redo] for k, v in st.items()}
-        big_c, big_v, _ = _circles_from_state(
-            sub, cfg, top_k=kb,
-            prov_budget=max(cfg.overflow_ring_candidates, cfg.max_ring_candidates),
-            peak_budget=max(cfg.overflow_peak_candidates, cfg.max_peak_candidates),
-            dedupe_first=True, margin_filter=True,
-        )
+        big_c, big_v, _ = _circles_from_state(sub, cfg,
+                                              **_overflow_budgets(cfg))
         circles[redo] = big_c
         valid[redo] = big_v
     return circles, valid

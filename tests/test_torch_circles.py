@@ -280,6 +280,175 @@ def test_hist10_scan_rounding():
         _eq(gc, wc)
 
 
+def _k3_window_walk(buf, at0, spans, bmap, cy, cx, H, W, max_r, nbins):
+    """K3's window walk in numpy: the plane's bytes start at buf[at0] (its
+    alignment), each row's spans are clipped to the plane, and the aligned
+    16-byte chunks that cover them are read whole, bytes outside the spans
+    masked. Returns (set of (y, x) read inside the spans, histogram)."""
+    win = 2 * max_r + 1
+    nch = (win + 14) // 16 + 1
+    seen, hist = set(), np.zeros(nbins, np.int64)
+    for u in range(win):
+        yy = cy - max_r + u
+        if yy < 0 or yy >= H:
+            continue
+        a0, b0 = max(cx + spans[u, 0], 0), min(cx + spans[u, 1], W - 1)
+        a1, b1 = max(cx + spans[u, 2], 0), min(cx + spans[u, 3], W - 1)
+        e0, e1 = a0 <= b0, a1 <= b1
+        if not (e0 or e1):
+            continue
+        lo, hi = (a0 if e0 else a1), (b1 if e1 else b0)
+        at = at0 + yy * W + lo
+        for c in range(nch):
+            chunk = (at & ~15) + 16 * c
+            if chunk > at + hi - lo:
+                continue
+            x = lo + chunk - at + np.arange(16)
+            ins = ((x >= a0) & (x <= b0)) | ((x >= a1) & (x <= b1))
+            assert ((x[ins] >= 0) & (x[ins] < W)).all()
+            seen.update((yy, int(v)) for v in x[ins])
+            edge = x[ins & (buf[chunk:chunk + 16] & 1 != 0)]
+            np.add.at(hist, bmap[u * win + edge - cx + max_r], 1)
+    return seen, hist
+
+
+@pytest.mark.parametrize("radii", [(1, 30), (1, 60), (5, 44)])
+def test_k3_bin_map_equals_onehot(radii):
+    """K3's bin map, built without the one-hot, is the one-hot's column of
+    each annulus offset and -1 elsewhere."""
+    onehot, win, nbins = radius_cuda._hist10_tables(*radii)
+    bmap, win_b, nbins_b = radius_cuda._bin_map(*radii)
+    want = np.where(onehot.sum(axis=1) > 0, onehot.argmax(axis=1), -1)
+    assert (win_b, nbins_b) == (win, nbins)
+    np.testing.assert_array_equal(bmap, want)
+
+
+@pytest.mark.parametrize("radii", [(1, 30), (1, 60), (5, 44), (1, 120)])
+def test_k3_row_spans(radii):
+    """K3's row-span table covers exactly the bin map's annulus, and the
+    kernel's clipping and aligned chunk reads keep exactly the in-plane
+    annulus pixels of windows at the four corners and the middle of a 40x50
+    plane, at every alignment of the plane's first byte, with the
+    histogram of a direct count."""
+    min_r, max_r = radii
+    bmap, win, nbins = radius_cuda._bin_map(min_r, max_r)
+    spans = radius_cuda._row_spans(min_r, max_r)
+    ann = bmap.reshape(win, win) >= 0
+    dx = np.arange(win) - max_r
+    covered = (((dx >= spans[:, :1]) & (dx <= spans[:, 1:2]))
+               | ((dx >= spans[:, 2:3]) & (dx <= spans[:, 3:4])))
+    np.testing.assert_array_equal(covered, ann)
+    two = spans[:, 2] <= spans[:, 3]  # rows through the hole: left run first
+    assert two.any() and (spans[two, 1] + 1 < spans[two, 2]).all()
+    H, W = 40, 50
+    emask = np.random.default_rng(max_r).random((H, W)) < 0.3
+    du, dv = np.nonzero(ann)
+    for at0 in (0, 1, 7, 15):
+        buf = np.zeros(at0 + H * W + 32, np.uint8)
+        buf[at0:at0 + H * W] = emask.ravel()
+        for cy, cx in ((0, 0), (0, W - 1), (H - 1, 0), (H - 1, W - 1),
+                       (H // 2, W // 2)):
+            yy, xx = cy - max_r + du, cx - max_r + dv
+            inp = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            want_hist = np.zeros(nbins, np.int64)
+            edge = inp.copy()
+            edge[inp] = emask[yy[inp], xx[inp]]
+            np.add.at(want_hist, bmap[du[edge] * win + dv[edge]], 1)
+            seen, hist = _k3_window_walk(buf, at0, spans, bmap, cy, cx, H, W,
+                                         max_r, nbins)
+            assert seen == set(zip(yy[inp].tolist(), xx[inp].tolist()))
+            np.testing.assert_array_equal(hist, want_hist)
+            assert hist.sum() > 0
+
+
+def _k3_scan(hist, min_r):
+    """K3's warp-parallel run scan in numpy, lane by lane: each of 32 lanes
+    owns ceil(nbins/32) contiguous bins; the integer prefix comes from the
+    lanes' sums and their scan and is then converted to float32, and the
+    table of the highest nonempty bin in [1, b] from the lanes' own highest
+    and their max-scan. Each anchor is that table at j. The run radius is
+    rounded as the plain version rounds it."""
+    f32 = np.float32
+    hist = np.asarray(hist, np.int64)
+    nbins = hist.size
+    per = (nbins + 31) // 32
+    lanes = [(min(lane * per, nbins), min(lane * per + per, nbins))
+             for lane in range(32)]
+    own = [int(hist[b0:b1].sum()) for b0, b1 in lanes]
+    own_top = [max([b for b in range(b0, b1) if b >= 1 and hist[b] > 0],
+                   default=-1) for b0, b1 in lanes]
+    sums, highs = np.cumsum(own), np.maximum.accumulate(own_top)
+    prefix = np.zeros(nbins, np.int64)
+    top = np.zeros(nbins, np.int64)
+    for lane, (b0, b1) in enumerate(lanes):
+        run, above = sums[lane] - own[lane], highs[lane - 1] if lane else -1
+        for b in range(b0, b1):
+            run += hist[b]
+            above = b if b >= 1 and hist[b] > 0 else above
+            prefix[b], top[b] = run, above
+    csum = prefix.astype(np.float32)
+
+    j, r_best, max_count = nbins - 1, f32(0), f32(0)
+    for _ in range((nbins - 2) // 11 + 1):
+        anchor = int(top[j]) if j >= 1 else -1
+        if anchor < 0:
+            break
+        j_after = max(anchor - 10, -1)
+        hi, lo = csum[anchor], csum[max(j_after, 0)]
+        cnt = f32(hi - (lo if j_after >= 0 else f32(0)))
+        r_cur = f32((anchor + j_after) * radius_cuda._RUN_SCALE + min_r)
+        if (f32(cnt * r_best) >= f32(max_count * r_cur)) or (
+                r_best < f32(1.19e-7) and cnt >= max_count):
+            r_best, max_count = r_cur, cnt
+        j = anchor - 11
+    return r_best, max_count
+
+
+def _k3_scan_cases():
+    rng = np.random.default_rng(17)
+    cases = {}
+    for nbins in (290, 590):
+        dens = rng.uniform(0.005, 0.3, (150, 1))
+        h = (rng.random((150, nbins)) < dens) * rng.integers(1, 7, (150, nbins))
+        cases[f"random{nbins}"] = (h, (1, 2, 7))
+    one = lambda bins, v: np.bincount(bins, v, 290)[None].astype(np.int64)
+    cases["empty"] = (np.zeros((1, 290), np.int64), (1, 7))
+    cases["bin0"] = (one([0], [5]), (1, 7))
+    cases["one_bin"] = (one([137], [3]), (1, 7))
+    cases["every_bin"] = (rng.integers(1, 4, (4, 290)), (1, 7))
+    # bin 240 is j_after of the run at 250 (neither counted nor an anchor);
+    # 239 is the next anchor, 11 below
+    cases["runs_10_11"] = (np.stack([
+        one([250, 240], [2, 4]), one([250, 239], [2, 4]),
+        one([250, 240, 239, 228], [1, 1, 5, 9])])[:, 0], (1, 7))
+    # at min_r 1 the runs anchored at 35 and 15 have radii 4.0 and 2.0, so
+    # counts 2 and 1 tie: 1 * 4.0 == 2 * 2.0, and the later run wins
+    cases["tie"] = (one([35, 15], [2, 1]), (1,))
+    return cases
+
+
+_K3_SCAN_CASES = _k3_scan_cases()
+
+
+@pytest.mark.parametrize("case", sorted(_K3_SCAN_CASES))
+def test_k3_scan_decomposition_equals_plain(case):
+    """The numpy emulation of K3's warp scan (lane-split integer prefix and
+    highest-nonempty-bin table) equals _hist10_scan bit for bit on seeded
+    histograms at 290 and 590 bins and on hand-made ones."""
+    hists, min_rs = _K3_SCAN_CASES[case]
+    for min_r in min_rs:
+        want_r, want_c = radius_cuda._hist10_scan(
+            torch.from_numpy(hists.astype(np.float32)), min_r)
+        got = [_k3_scan(h, min_r) for h in hists]
+        _eq(np.array([g[0] for g in got], np.float32), want_r.numpy())
+        _eq(np.array([g[1] for g in got], np.float32), want_c.numpy())
+    if case == "tie":
+        np.testing.assert_array_equal(want_r.numpy(), [2.0])
+        np.testing.assert_array_equal(want_c.numpy(), [1.0])
+    if case in ("empty", "bin0"):
+        assert not want_r.any() and not want_c.any()
+
+
 @pytest.fixture(scope="module")
 def patches():
     emask, sx, sy, ys, xs, valid = _rescore_inputs(21, K=48)

@@ -101,17 +101,56 @@ def test_k2_equals_plain(dev, cells, max_r):
     assert float(want.sum()) > 0
 
 
-def test_k3_equals_plain(dev):
-    rng = np.random.default_rng(3)
-    P, H, W, K = 3, 100, 120, 300
+K3_CASES = {  # want mask, radius range, dtype of ys and xs, (P, H, W, K)
+    "prefix": ("prefix", (1, 30), np.int64, (3, 100, 120, 300)),
+    "random_bits": ("random", (1, 30), np.int64, (3, 100, 120, 300)),
+    "max_r60": ("random", (1, 60), np.int64, (3, 100, 120, 300)),
+    "max_r120": ("prefix", (1, 120), np.int64, (3, 100, 120, 300)),
+    "int32": ("random", (5, 44), np.int32, (3, 100, 120, 300)),
+    "int32_prefix": ("prefix", (1, 30), np.int32, (3, 100, 120, 300)),
+    "none_wanted": ("none", (1, 30), np.int64, (3, 100, 120, 300)),
+    "all_wanted": ("all", (1, 30), np.int64, (3, 100, 120, 300)),
+    # past the 65535 planes of a grid's y dimension
+    "p70000": ("all", (1, 10), np.int64, (70000, 8, 8, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3_equals_plain(dev, case):
+    """One launch per call and exactly the plain version's output: prefix
+    and random want masks, no and every slot wanted, radii 30 to 120,
+    int32 and int64 centres, and a pool of 70,000 tiny planes."""
+    mask, (min_r, max_r), dtype, (P, H, W, K) = K3_CASES[case]
+    rng = np.random.default_rng(list(K3_CASES).index(case))
     emask = rng.random((P, H, W)) < 0.1
-    ys = rng.integers(0, H, (P, K))
-    xs = rng.integers(0, W, (P, K))
-    want_m = np.arange(K)[None, :] < np.array([[K], [0], [123]])
+    ys = rng.integers(0, H, (P, K)).astype(dtype)
+    xs = rng.integers(0, W, (P, K)).astype(dtype)
+    want_m = {
+        "prefix": np.arange(K)[None, :] < np.array([[K], [0], [123]]),
+        "random": rng.random((P, K)) < 0.4,
+        "none": np.zeros((P, K), bool),
+        "all": np.ones((P, K), bool),
+    }[mask]
     args = [torch.from_numpy(a).to(dev) for a in (emask, ys, xs, want_m)]
-    got = radius_cuda.radius_support_pool(*args, 1, 30)
-    want = radius_cuda.radius_support_pool_plain(*args, 1, 30)
+    before = radius_cuda.launches
+    got = radius_cuda.radius_support_pool(*args, min_r, max_r)
+    assert radius_cuda.launches == before + 1
+    want = radius_cuda.radius_support_pool_plain(*args, min_r, max_r)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (float(want[1].max()) > 0) == (mask != "none")
+
+
+def test_k3_too_many_bins_raises(dev):
+    """Radii 1 to 3000 need 29,990 bins, whose two int32 tables per warp
+    exceed the card's shared memory per block: the call raises by name and
+    launches nothing."""
+    emask = torch.zeros((1, 8, 8), dtype=torch.bool, device=dev)
+    ys = torch.full((1, 2), 4, dtype=torch.int64, device=dev)
+    want = torch.ones((1, 2), dtype=torch.bool, device=dev)
+    before = radius_cuda.launches
+    with pytest.raises(ValueError, match="29990 histogram bins"):
+        radius_cuda.radius_support_pool(emask, ys, ys, want, 1, 3000)
+    assert radius_cuda.launches == before
 
 
 def _diagram(size=192, n=9):
