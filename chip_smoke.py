@@ -20,14 +20,32 @@ Phases, each printing one line or a few:
      whole BoardResult bit-equal to the port's CPU run, the warm wall time
      and the per-stage times; then a noisy diagram that takes the overflow
      rerun, CUDA against CPU, and the rerun's own wall time;
-  5. every kernel launched by the main-path run (launch counters > 0);
-  6. torch.profiler over each kernel's main-path call (K3: each of its
-     cases): its launches and device reads per call (K1 must be one kernel
-     launch and one device read, K3 one launch and no device read) and its
-     device time.
+  5. the batch path: detect_board_bucket_batch on 16 seeded diagrams of
+     mixed sizes (648-768 px, an exact fit and margins of 1 and 2 px) in
+     the 768 canvas bucket, every planted stone found; each row equal to
+     detect_board_auto of its image in every field, detect_board_auto equal
+     to native detect_board at margins 0 and >= 3; a sub-batch of 3 equal
+     to its CPU run; launch counts that do not grow with B (2 K1, 2 K2,
+     1 K3, plus 2 K2 and 1 K3 with the overflow rerun); the CLI's --batch;
+     detect_board_batch on 32 512^2 diagrams; warm img/s and stage times of
+     both batches and of the 16 images through detect_board and
+     detect_board_auto one by one.
+     Phase 2 also holds each kernel at the batch's own inputs (recorded
+     from one batch run: K1 at [1,768,768] and [4,768,768] words, K2 and K3
+     over the 128-plane pool) against its plain version;
+  6. every kernel launched by each path's counted run (detect_board,
+     detect_board_bucket_batch, detect_board_batch; counts set to 0 just
+     before each and read just after);
+  7. torch.profiler over each kernel's main-path call and its batch cases
+     (K3: each of its cases): its launches and device reads per call (K1
+     must be one kernel launch and one device read, K3 one launch and no
+     device read) and its device time;
+  8. the device busy share of one warm 16-image batch (profiler), then
+     K1's main-path profile once more (logged only).
 
-Then one JSON line with each kernel's launches, error, times and bound, the
-card's name and power limit, and as the last line
+Then one JSON line with each kernel's launches (by path), error, times and
+bound, one with the batch throughputs, the card's name and power limit,
+and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is not 0 and no result line is printed.
 Without a CUDA device it exits with 1 before doing anything.
@@ -35,6 +53,7 @@ Without a CUDA device it exits with 1 before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -55,6 +74,22 @@ SEED = 0
 BIG = 1280           # the 1280-class scan: K1 staircase planes past a row segment
 # K1 rows past 6144 words, the cap of a kernel that held a line in shared memory
 WIDE = (16, 6400)
+# The batch path: B = 16 diagrams (the JAX CLI's default --batch-size) of
+# mixed native sizes in the 768 canvas bucket, the book-scan class: an exact
+# fit, margins of 1 and 2 px, and sizes down to 648, each with its own seed
+# (sizes and seeds at which the detector reads every planted stone).
+BATCH = ((768, 100), (767, 101), (766, 102), (760, 116), (752, 104),
+         (744, 105), (736, 106), (728, 107), (720, 108), (712, 109),
+         (704, 110), (696, 111), (688, 112), (672, 113), (656, 114),
+         (648, 115))
+# detect_board_batch: 32 same-size 512^2 diagrams of 13 lines (the 19-line
+# 512^2 diagram is not read correctly by either package)
+SMALL, SMALL_B, SMALL_LINES, SMALL_STONES, SMALL_SEED = 512, 32, 13, 30, 200
+# the fields tests/test_bucketed.py holds bucketed against native detection
+BUCKET_FIELDS = ("full_board", "detected_board", "hsize", "vsize",
+                 "board_ready", "valid_grid", "num_black", "num_white",
+                 "side_to_move", "hspace", "vspace", "intensities",
+                 "stone_mask", "edges", "grey", "circles_removed")
 
 
 def log(phase: str, msg: str) -> None:
@@ -115,6 +150,54 @@ def staircase_plane(rng, H, W):
             if x >= start + W // 2 - 2:
                 break
     return strong & cand, cand
+
+
+def batch_images():
+    """The batch path's 16 diagrams: [(rgb, planted stones)]."""
+    return [render_diagram(size=size, seed=seed) for size, seed in BATCH]
+
+
+def bucket(imgs):
+    """Images padded top-left into their common canvas bucket, with their
+    content dims and line thresholds, as the CLI's --batch builds them."""
+    from img2sgf_tpu_torch import bucket_dim, choose_line_threshold
+
+    hb = max(bucket_dim(im.shape[0]) for im in imgs)
+    wb = max(bucket_dim(im.shape[1]) for im in imgs)
+    canvases = np.zeros((len(imgs), hb, wb, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        canvases[i, :im.shape[0], :im.shape[1]] = im
+    hs = [im.shape[0] for im in imgs]
+    ws = [im.shape[1] for im in imgs]
+    ths = [choose_line_threshold(h, w) for h, w in zip(hs, ws)]
+    return canvases, hs, ws, ths
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the arguments of every K1, K2 and K3 wrapper call made through
+    the pipeline's own references to them: yields {"K1": [(args, kwargs)],
+    "K2": [...], "K3": [...]}."""
+    import importlib
+
+    # the packages re-export functions under some module names (ops.canny)
+    mod = importlib.import_module
+    targets = [(mod("img2sgf_tpu_torch.ops.canny"), "hysteresis_packed", "K1"),
+               (mod("img2sgf_tpu_torch.hough.circles"), "exact_rescore", "K2"),
+               (mod("img2sgf_tpu_torch.pipeline.detect"), "radius_support_pool",
+                "K3")]
+    calls = {k: [] for _, _, k in targets}
+    saved = [(m, name, getattr(m, name)) for m, name, _ in targets]
+    for (m, name, key), (_, _, orig) in zip(targets, saved):
+        def rec(*a, _orig=orig, _key=key, **kw):
+            calls[_key].append((a, kw))
+            return _orig(*a, **kw)
+        setattr(m, name, rec)
+    try:
+        yield calls
+    finally:
+        for m, name, orig in saved:
+            setattr(m, name, orig)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -210,9 +293,10 @@ def k2_walk_steps(emask, ys, xs, valid, max_r, cells):
 
 
 def k2_bytes(emask, ys, xs, valid, max_r, cells):
-    """Bytes K2 must move on these inputs: emask once, sx and sy (4 B each)
-    only at edge pixels inside some valid candidate's window, ys and xs
-    (int32), valid, and the float32 output."""
+    """Bytes K2 must move on these inputs: emask once at the pixels inside
+    some valid candidate's window (the kernel reads no other), sx and sy
+    (4 B each) only at edge pixels among them, ys and xs (int32), valid,
+    and the float32 output."""
     import torch
 
     P, H, W = emask.shape
@@ -227,7 +311,7 @@ def k2_bytes(emask, ys, xs, valid, max_r, cells):
         diff.index_put_((pidx[m], yy[m], xx[m]), sign * one, accumulate=True)
     covered = diff.cumsum(1).cumsum(2)[:, :H, :W] > 0
     n_edges = int((covered & emask).sum())
-    return (emask.numel() + 8 * n_edges + 9 * ys.numel()
+    return (int(covered.sum()) + 8 * n_edges + 9 * ys.numel()
             + 4 * P * ys.shape[1] * cells * cells)
 
 
@@ -266,27 +350,30 @@ def k3_work(emask, ys, xs, want, min_r, max_r):
     return nbytes, K3_OPS_PER_WINDOW_PIXEL * n_in + K3_OPS_PER_EDGE * n_edge
 
 
-def k1_cases(dev, rgb, cfg, rng):
-    """K1's inputs: the main path's two Canny calls and staircase planes
-    whose sweeps bind the cap, past a row segment, and past the old 6144
-    line cap. Returns [(label, edge0 words, gate words, iters)]."""
+def main_path_calls(dev, rgb, cfg):
+    """The K1, K2 and K3 wrapper arguments of one detect_board run on the
+    768^2 diagram (recording)."""
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.pipeline import detect_board
+
+    with recording() as calls:
+        detect_board(rgb, cfg, choose_line_threshold(*rgb.shape[:2]), device=dev)
+    if [len(calls[k]) for k in ("K1", "K2", "K3")] != [2, 2, 1]:
+        raise AssertionError("the 768^2 main path's kernel calls: "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
+    return calls
+
+
+def k1_cases(dev, calls, rng):
+    """K1's inputs: the main path's two Canny calls (recorded) and staircase
+    planes whose sweeps bind the cap, past a row segment, and past the old
+    6144 line cap. Returns [(label, edge0 words, gate words, iters)]."""
     import torch
 
-    from img2sgf_tpu_torch.ops.canny import _canny_pre, _nms, pack_planes
-    from img2sgf_tpu_torch.ops.color import preprocess
-    from img2sgf_tpu_torch.ops.sobel import sobel3
-    from img2sgf_tpu_torch.pipeline.detect import _pre_circles, _variant_dedup
+    from img2sgf_tpu_torch.ops.canny import pack_planes
 
-    pre = preprocess(torch.from_numpy(rgb).to(dev), cfg.contrast, cfg.brightness)
-    strong, cand = _canny_pre(pre, cfg.edge_min, cfg.edge_max, cfg.gradient_l2)
-    _grey, _edges, variants = _pre_circles(torch.from_numpy(rgb).to(dev), cfg)
-    keep, _ = _variant_dedup(cfg, variants.shape[0])
-    planes = variants[keep]
-    dx, dy = sobel3(planes)
-    mag = dx.abs() + dy.abs()
-    low, high = max(cfg.circle_canny_high / 2, 1), cfg.circle_canny_high
-    cand_p = _nms(mag, dx, dy, int(low))
-    strong_p = cand_p & (mag > int(high))
+    (outer, _), (internal, _) = calls["K1"]
+    n_planes = calls["K2"][0][0][0].shape[0]
 
     def stairs(r, H, W):
         pairs = [staircase_plane(r, H, W) for _ in range(8)]
@@ -301,39 +388,115 @@ def k1_cases(dev, rgb, cfg, rng):
     wide_s = wide_c & torch.from_numpy(rng2.random((8, *WIDE)) < 0.002).to(dev)
     wide_s[:, 3, -1] = True
     cases = [
-        ("outer canny", strong[None], cand[None], cfg.hysteresis_iters),
-        (f"internal canny ({planes.shape[0]} planes)", strong_p, cand_p,
-         cfg.hysteresis_iters),
         ("stairs iters=3", st_s, st_c, 3),
         ("stairs iters=256", st_s, st_c, 256),
         ("stairs iters=256", big_s, big_c, 256),
         (f"random, a {WIDE[1]}-word run", wide_s, wide_c, 256),
     ]
-    return [(label, pack_planes(s & c), pack_planes(c), iters)
-            for label, s, c, iters in cases]
+    return [("outer canny", *outer),
+            (f"internal canny ({n_planes} planes)", *internal)] + \
+        [(label, pack_planes(s & c), pack_planes(c), iters)
+         for label, s, c, iters in cases]
 
 
-def phase_kernels(dev, rgb, cfg):
+def batch_kernel_cases(dev, cfg, batch, rate):
+    """Each kernel at the batch path's own inputs, recorded from one run of
+    detect_board_bucket_batch on the 16 diagrams: K1's outer Canny ([1,H,W]
+    words holding 16 images) and internal Canny ([4,H,W] words, 128 planes),
+    K2's 5x5 and 3x3 calls over the 128-plane pool, and K3's. Each equal to
+    its plain version, with the call's time, the plain version's and the
+    bound. Returns {"K1": [case], "K2": [case], "K3": [case]}."""
+    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.ops import hysteresis_cuda as hyst
+    from img2sgf_tpu_torch.pipeline import detect_board_bucket_batch
+
+    canvases, hs, ws, ths = bucket([im for im, _ in batch])
+    with recording() as calls:
+        detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
+    if [len(calls[k]) for k in ("K1", "K2", "K3")] not in ([2, 2, 1], [2, 4, 2]):
+        raise AssertionError("the batch's kernel calls: "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
+    out = {"K1": [], "K2": [], "K3": []}
+    for name, ((e0, g, iters), _) in zip(("outer", "internal"), calls["K1"]):
+        label = (f"batch {name} canny [" + ",".join(map(str, e0.shape)) + "]")
+        out_k = hyst.hysteresis_packed(e0, g, iters)
+        sweeps = hyst.last_sweeps
+        out_p = hyst.hysteresis_packed_plain(e0, g, iters)
+        if sweeps != hyst.last_sweeps:
+            raise AssertionError(f"K1 {label}: {sweeps} sweeps, the plain "
+                                 f"loop ran {hyst.last_sweeps}")
+        err = check_equal(f"K1 {label}", out_k, out_p)
+        ms = cuda_ms(lambda: hyst.hysteresis_packed(e0, g, iters), 5)
+        pms = cuda_ms(lambda: hyst.hysteresis_packed_plain(e0, g, iters), 1)
+        b_ms, b_by = roofline(12 * e0.numel(),
+                              K1_OPS_PER_WORD_SWEEP * e0.numel() * sweeps, rate)
+        out["K1"].append(dict(label=label, sweeps=sweeps, ms=ms, plain_ms=pms,
+                              bound_ms=b_ms, bound_by=b_by, err=err,
+                              call=lambda a=(e0, g, iters): hyst.hysteresis_packed(*a)))
+        log("kernels", f"K1 hysteresis {label} iters={iters}: equal, {sweeps} "
+            f"sweeps (plain loop the same), call {ms:.3f} ms, plain {pms:.3f} "
+            f"ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+    for args, kw in calls["K2"]:
+        emask, ys, xs, valid = args[0], args[3], args[4], args[5]
+        max_r, cells = args[7], kw["cells"]
+        label = f"batch cells={cells} [{ys.shape[0]},{ys.shape[1]}]"
+        out_k = rescore_cuda.exact_rescore(*args, **kw)
+        out_p = rescore_cuda.exact_rescore_plain(*args, **kw)
+        err = check_equal(f"K2 {label}", out_k, out_p)
+        ms = cuda_ms(lambda: rescore_cuda.exact_rescore(*args, **kw), 10)
+        pms = cuda_ms(lambda: rescore_cuda.exact_rescore_plain(*args, **kw), 1)
+        steps = k2_walk_steps(emask, ys, xs, valid, max_r, cells)
+        nbytes = k2_bytes(emask, ys, xs, valid, max_r, cells)
+        b_ms, b_by = roofline(nbytes, K2_OPS_PER_STEP * steps, rate)
+        out["K2"].append(dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                              bound_by=b_by, err=err, valid=int(valid.sum()),
+                              call=lambda a=args, k=kw: rescore_cuda.exact_rescore(*a, **k)))
+        log("kernels", f"K2 rescore {label} valid={int(valid.sum())}: equal, "
+            f"call {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms * 1e3:.2f} us "
+            f"({b_by}: {steps} walk steps, {nbytes / 1e6:.1f} MB)")
+    for args, kw in calls["K3"]:
+        emask, ys, xs, want, min_r, max_r = args
+        label = f"batch [{ys.shape[0]},{ys.shape[1]}]"
+        out_k = radius_cuda.radius_support_pool(*args)
+        out_p = radius_cuda.radius_support_pool_plain(*args)
+        err = check_equal(f"K3 {label}", out_k, out_p)
+        ms = cuda_ms(lambda: radius_cuda.radius_support_pool(*args), 10)
+        pms = cuda_ms(lambda: radius_cuda.radius_support_pool_plain(*args), 1)
+        nbytes, ops = k3_work(*args)
+        b_ms, b_by = roofline(nbytes, ops, rate)
+        out["K3"].append(dict(label=label, max_r=max_r, wanted=int(want.sum()),
+                              ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                              err=err,
+                              call=lambda a=args: radius_cuda.radius_support_pool(*a)))
+        log("kernels", f"K3 radius {label} wanted={int(want.sum())}: equal, "
+            f"call {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms * 1e3:.2f} us "
+            f"({b_by}: {ops} instructions, {nbytes / 1e6:.2f} MB)")
+    return out
+
+
+def phase_kernels(dev, rgb, cfg, batch):
     """Phase 2: each kernel against its plain version on the card, with the
-    call's time, the plain version's, and the roofline bound."""
+    call's time, the plain version's, and the roofline bound; at the
+    single-image path's shapes and at the batch path's
+    (batch_kernel_cases)."""
     import torch
 
     from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
     from img2sgf_tpu_torch.ops import hysteresis_cuda as hyst
     from img2sgf_tpu_torch.pipeline.detect import (
-        _overflow_budgets, _plane_state_pool, _pre_circles,
-        _select_candidates, _variant_dedup)
+        _overflow_budgets, _select_candidates)
 
     rng = np.random.default_rng(SEED + 1)
     rate, mhz = int32_ops_per_s(dev)
     log("kernels", f"int32 rate {rate / 1e12:.2f} T op/s (64 lanes x SMs x "
         f"{mhz:.0f} MHz max SM clock); memory {HBM_BYTES_PER_S / 1e12} TB/s")
     results = {}
+    calls = main_path_calls(dev, rgb, cfg)
 
     # --- K1
     err = 0.0
     k1 = []
-    cases = k1_cases(dev, rgb, cfg, rng)
+    cases = k1_cases(dev, calls, rng)
     for label, e0, g, iters in cases:
         shape = "[" + ",".join(map(str, e0.shape)) + "]"
         out_k = hyst.hysteresis_packed(e0, g, iters)
@@ -363,12 +526,10 @@ def phase_kernels(dev, rgb, cfg):
                          sweeps=main["sweeps"],
                          call=lambda: hyst.hysteresis_packed(*cases[1][1:]))
 
-    # --- K2 / K3 on the real plane state with random centres and prefixes
-    _grey, _edges, variants = _pre_circles(torch.from_numpy(rgb).to(dev), cfg)
-    keep, _ = _variant_dedup(cfg, variants.shape[0])
-    planes = variants[keep]
-    st = _plane_state_pool(planes, cfg)
-    P = planes.shape[0]
+    # --- K2 / K3 on the main path's plane state (recorded), with random
+    # centres and prefixes and with the main path's own radius inputs
+    emask, sx, sy = calls["K2"][0][0][:3]
+    P = emask.shape[0]
     err = 0.0
     k2 = []
     main_args = None  # cells 5 at the config's radius: the main path's case
@@ -381,8 +542,8 @@ def phase_kernels(dev, rgb, cfg):
             ys = torch.from_numpy(ys_np).to(dev)
             xs = torch.from_numpy(xs_np).to(dev)
             valid = torch.from_numpy(np.arange(K)[None, :] < n_valid[:, None]).to(dev)
-            args = (st["emask"], st["sx"], st["sy"], ys, xs, valid,
-                    cfg.circle_min_radius, max_r)
+            args = (emask, sx, sy, ys, xs, valid, cfg.circle_min_radius,
+                    max_r)
             main_args = main_args or args
             out_k = rescore_cuda.exact_rescore(*args, cells=cells)
             out_p = rescore_cuda.exact_rescore_plain(*args, cells=cells)
@@ -390,8 +551,8 @@ def phase_kernels(dev, rgb, cfg):
             err = max(err, check_equal(f"K2 {label}", out_k, out_p))
             ms = cuda_ms(lambda: rescore_cuda.exact_rescore(*args, cells=cells), 10)
             pms = cuda_ms(lambda: rescore_cuda.exact_rescore_plain(*args, cells=cells), 1)
-            steps = k2_walk_steps(st["emask"], ys, xs, valid, max_r, cells)
-            nbytes = k2_bytes(st["emask"], ys, xs, valid, max_r, cells)
+            steps = k2_walk_steps(emask, ys, xs, valid, max_r, cells)
+            nbytes = k2_bytes(emask, ys, xs, valid, max_r, cells)
             b_ms, b_by = roofline(nbytes, K2_OPS_PER_STEP * steps, rate)
             k2.append(dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms,
                            bound_by=b_by))
@@ -410,15 +571,15 @@ def phase_kernels(dev, rgb, cfg):
     n_want = np.concatenate([[0, K, 1], rng.integers(1, K, P - 3)])
     want = torch.from_numpy(np.arange(K)[None, :] < n_want[:, None]).to(dev)
     min_r = cfg.circle_min_radius
-    ys_m, xs_m, want_m, _ = _select_candidates(st, cfg, margin_filter=True)
+    _, ys_m, xs_m, want_m = calls["K3"][0][0][:4]
     _, _, sub = overflow_state(dev, cfg)
     ys_o, xs_o, want_o, _ = _select_candidates(sub, cfg,
                                                **_overflow_budgets(cfg))
     k3_cases = [  # the main path's case first: it gives the kernel's JSON row
-        (f"768^2 main path [{P},{K}]", st["emask"], ys_m, xs_m, want_m,
+        (f"768^2 main path [{P},{K}]", emask, ys_m, xs_m, want_m,
          cfg.circle_max_radius),
-        (f"random [{P},{K}]", st["emask"], ys, xs, want, cfg.circle_max_radius),
-        (f"random [{P},{K}]", st["emask"], ys, xs, want, 60),
+        (f"random [{P},{K}]", emask, ys, xs, want, cfg.circle_max_radius),
+        (f"random [{P},{K}]", emask, ys, xs, want, 60),
         (f"noisy 256^2 overflow rerun [{sub['emask'].shape[0]},"
          f"{ys_o.shape[1]}]", sub["emask"], ys_o, xs_o, want_o,
          cfg.circle_max_radius),
@@ -445,6 +606,17 @@ def phase_kernels(dev, rgb, cfg):
                          ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"],
                          bound_ms=k3[0]["bound_ms"], bound_by=k3[0]["bound_by"],
                          cases=k3)
+
+    # --- the batch path's own inputs; the single-image main case stays first
+    batched = batch_kernel_cases(dev, cfg, batch, rate)
+    results["K1"]["cases"] = [dict(label="internal canny (main path)",
+                                   call=results["K1"]["call"])] + batched["K1"]
+    results["K2"]["cases"] = [dict(label="cells=5 (main path)",
+                                   call=results["K2"]["call"])] + batched["K2"]
+    results["K3"]["cases"] += batched["K3"]
+    for k in results:
+        results[k]["err"] = max([results[k]["err"]]
+                                + [c["err"] for c in batched[k]])
     return results
 
 
@@ -640,7 +812,7 @@ def overflow_state(dev, cfg):
     from img2sgf_tpu_torch.pipeline.detect import (
         _circles_from_state, _plane_state_pool, _pre_circles, _variant_dedup)
 
-    _, _, v = _pre_circles(torch.from_numpy(noisy_diagram()).to(dev), cfg)
+    v = _pre_circles(torch.from_numpy(noisy_diagram()).to(dev)[None], cfg)[2][0]
     keep, _ = _variant_dedup(cfg, v.shape[0])
     st = _plane_state_pool(v[keep], cfg)
     _, _, sat = _circles_from_state(st, cfg, margin_filter=True)
@@ -688,6 +860,282 @@ def phase_overflow(dev, cfg):
     return rerun_ms
 
 
+COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
+
+
+@contextlib.contextmanager
+def counted(out: dict):
+    """Set every kernel's launch count to 0, run the body, then store the
+    counts (by kernel) in out."""
+    import torch
+
+    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.ops import hysteresis_cuda
+
+    mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda}
+    for m in mods.values():
+        m.launches = 0
+    yield
+    torch.cuda.synchronize()
+    out.update({k: m.launches for k, m in mods.items()})
+
+
+def check_batch_launches(launches, label):
+    """One batch makes 2 K1 calls (outer and internal Canny), 2 K2 and 1 K3,
+    plus 2 K2 and 1 K3 when a plane saturates, whatever its size."""
+    k1, k2, k3 = launches["K1"], launches["K2"], launches["K3"]
+    if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3:
+        raise AssertionError(f"{label}: launches {launches}, expected K1 2, "
+                             "K2 2 and K3 1 (plus 2 and 1 with a rerun)")
+
+
+def check_stones(res, i, stones, n_lines, label):
+    """Row i of a batch result: board-ready, n_lines x n_lines, and every
+    planted stone with its colour. Returns the extra stones' count."""
+    if not bool(res.board_ready[i]):
+        raise AssertionError(f"{label} image {i}: board not ready")
+    if int(res.hsize[i]) != n_lines or int(res.vsize[i]) != n_lines:
+        raise AssertionError(f"{label} image {i}: grid "
+                             f"{int(res.hsize[i])}x{int(res.vsize[i])}")
+    board = res.full_board[i].cpu().numpy()
+    missed = {ij: c for ij, c in stones.items() if board[ij] != c}
+    if missed:
+        raise AssertionError(f"{label} image {i}: planted stones missed or "
+                             f"miscoloured: {missed}")
+    return int((board > 0).sum()) - len(stones)
+
+
+def wall_runs(fn, reps=5):
+    """Median host wall time (s) of reps runs of fn ending in a device
+    sync, after one warm-up, and the per-stage medians when fn takes a
+    timings dict."""
+    import torch
+
+    fn({})
+    walls, stages = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(None)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        tm = {}
+        fn(tm)
+        stages.append(tm)
+    return (statistics.median(walls),
+            {k: statistics.median(s[k] for s in stages) * 1e3 for k in stages[0]})
+
+
+def device_busy(fn, top=6):
+    """One warm run of fn under torch.profiler: (wall ms, device busy ms
+    summed over its kernels and copies, their count, the `top` names by
+    device time as (name, ms, count))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        raise AssertionError("the profiler recorded no device activity")
+    by_name = {}
+    for e in evs:
+        ms, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return wall * 1e3, busy, len(evs), [(k, ms, c) for k, (ms, c) in ranked]
+
+
+def phase_busy(dev, cfg, batch):
+    """Phase 8: the device busy share of one warm 16-image bucket batch
+    under torch.profiler (last of all: a profiled run of ~18,000 device
+    events has made the next profiled run drop a kernel event)."""
+    from img2sgf_tpu_torch.pipeline import detect_board_bucket_batch
+
+    canvases, hs, ws, ths = bucket([im for im, _ in batch])
+    wall_ms, busy_ms, n, top = device_busy(lambda: detect_board_bucket_batch(
+        canvases, cfg, ths, hs, ws, device=dev))
+    log("busy", f"bucket batch B={len(batch)} under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (share "
+        f"{busy_ms / wall_ms:.3f}) over {n} device kernels and copies; most "
+        "device time: " + "; ".join(f"{name[:80]} {ms:.1f} ms x{cnt}"
+                                    for name, ms, cnt in top))
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms, device_events=n)
+
+
+def phase_batch(dev, cfg, batch):
+    """Phase 5: the batch path. detect_board_bucket_batch on the 16
+    diagrams (counted): every image read; each row equal to
+    detect_board_auto of its image in every field; detect_board_auto equal
+    to native detect_board at margins 0 and >= 3; a sub-batch of 3 (margins
+    0, 1, 2) equal to its CPU run and to its rows of the 16; launch counts
+    that do not grow with B; the CLI's --batch; then detect_board_batch on
+    32 512^2 diagrams (counted), and the warm throughput of both batches
+    and of the 16 images through detect_board and detect_board_auto one by
+    one."""
+    import torch
+
+    from img2sgf_tpu_torch import to_sgf
+    from img2sgf_tpu_torch.pipeline import (
+        detect_board, detect_board_auto, detect_board_batch,
+        detect_board_bucket_batch)
+
+    imgs = [im for im, _ in batch]
+    canvases, hs, ws, ths = bucket(imgs)
+    B, Hc, Wc = canvases.shape[:3]
+    paths = {}
+    launches = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with counted(launches):
+        res = detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else float("nan"))
+    paths[f"detect_board_bucket_batch B={B} {Hc}"] = launches
+    check_batch_launches(launches, f"B={B} bucket batch")
+    extra = sum(check_stones(res, i, stones, N_LINES, "bucket batch")
+                for i, (_, stones) in enumerate(batch))
+    log("batch", f"detect_board_bucket_batch, {B} images {min(hs)}-{max(hs)} "
+        f"px in the {Hc} canvas: every image board_ready with all its planted "
+        f"stones and colours ({extra} extra stones in all); launches "
+        f"{launches}; peak device memory {peak_gb:.2f} GB")
+
+    for i, im in enumerate(imgs):
+        single = detect_board_auto(im, cfg, ths[i], device=dev)
+        h, w = hs[i], ws[i]
+        for f in dataclasses.fields(single):
+            row = getattr(res, f.name)[i]
+            if f.name in ("grey", "edges", "circles_removed"):
+                row = row[:h, :w]
+            got = getattr(single, f.name)
+            if row.dtype != got.dtype or not torch.equal(row, got):
+                raise AssertionError(f"batch row {i} differs from "
+                                     f"detect_board_auto in {f.name}")
+        margin = min(Hc - h, Wc - w)
+        if margin in (1, 2):
+            continue
+        native = detect_board(im, cfg, ths[i], device=dev)
+        bad = [f for f in BUCKET_FIELDS
+               if not torch.equal(getattr(native, f), getattr(single, f))]
+        if bad:
+            raise AssertionError(f"image {i} (margin {margin}): "
+                                 f"detect_board_auto differs from native "
+                                 f"detect_board in {bad}")
+    log("batch", f"each batch row equals detect_board_auto of its image in "
+        f"every field; detect_board_auto equals native detect_board in "
+        f"{len(BUCKET_FIELDS)} fields at margins 0 and >= 3")
+
+    sub = [0, 1, 2]  # margins 0, 1 and 2
+    sub_args = (canvases[sub], cfg, [ths[i] for i in sub], [hs[i] for i in sub],
+                [ws[i] for i in sub])
+    launches3 = {}
+    with counted(launches3):
+        res3 = detect_board_bucket_batch(*sub_args, device=dev)
+    check_batch_launches(launches3, f"B={len(sub)} bucket batch")
+    if launches3 != launches:
+        log("batch", f"note: B={len(sub)} launches {launches3} against "
+            f"B={B} {launches} (a plane saturates in one of them)")
+    t0 = time.perf_counter()
+    res3c = detect_board_bucket_batch(*sub_args, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    compare_results(res3, res3c, f"bucket batch of {len(sub)}, CUDA vs CPU")
+    for j, i in enumerate(sub):
+        for f in dataclasses.fields(res3):
+            if not torch.equal(getattr(res3, f.name)[j], getattr(res, f.name)[i]):
+                raise AssertionError(f"image {i}: its row of the B={len(sub)} "
+                                     f"batch differs from B={B} in {f.name}")
+    log("batch", f"B={len(sub)} sub-batch (margins 0, 1, 2): CUDA and CPU "
+        f"bit-equal in every field (CPU run {cpu_s:.1f} s), rows equal to the "
+        f"B={B} batch's; launches {launches3}"
+        + (f", as at B={B}" if launches3 == launches else ""))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        from PIL import Image
+
+        names = [f"d{i:02d}" for i in range(B)]
+        for name, im in zip(names, imgs):
+            Image.fromarray(im).save(os.path.join(tmp, name + ".png"))
+        out = os.path.join(tmp, "out")
+        proc = subprocess.run(
+            [sys.executable, "-m", "img2sgf_tpu_torch", "--batch",
+             os.path.join(tmp, "*.png"), "-o", out, "--device", dev.type],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI --batch failed ({proc.returncode}):\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        for i, name in enumerate(names):
+            with open(os.path.join(out, name + ".sgf")) as f:
+                got = f.read()
+            if got != to_sgf(res.full_board[i], side_to_move=int(res.side_to_move[i])):
+                raise AssertionError(f"CLI --batch SGF of image {i} differs "
+                                     "from to_sgf of its batch row")
+    log("batch", f"CLI --batch --device {dev.type} wrote {B} SGFs, each equal to "
+        f"to_sgf of its batch row ({proc.stdout.strip().splitlines()[-1]})")
+
+    small = [render_diagram(size=SMALL, n=SMALL_LINES, n_stones=SMALL_STONES,
+                            seed=SMALL_SEED + i) for i in range(SMALL_B)]
+    sbatch = np.stack([im for im, _ in small])
+    from img2sgf_tpu_torch import choose_line_threshold
+
+    sths = [choose_line_threshold(SMALL, SMALL)] * SMALL_B
+    launches512 = {}
+    with counted(launches512):
+        res512 = detect_board_batch(sbatch, cfg, sths, device=dev)
+    paths[f"detect_board_batch B={SMALL_B} {SMALL}"] = launches512
+    check_batch_launches(launches512, f"B={SMALL_B} batch")
+    extra = sum(check_stones(res512, i, stones, SMALL_LINES, "512 batch")
+                for i, (_, stones) in enumerate(small))
+    log("batch", f"detect_board_batch, {SMALL_B} images {SMALL}x{SMALL}: every "
+        f"image board_ready with all its planted stones ({extra} extra in "
+        f"all); launches {launches512}")
+
+    tput = {}
+    wall, stages = wall_runs(lambda tm: detect_board_bucket_batch(
+        canvases, cfg, ths, hs, ws, device=dev, timings=tm))
+    tput[f"bucket_batch_{Hc}_B{B}"] = dict(img_per_s=B / wall, wall_ms=wall * 1e3,
+                                           stage_ms=stages)
+    wall, stages = wall_runs(lambda tm: detect_board_batch(
+        sbatch, cfg, sths, device=dev, timings=tm))
+    tput[f"batch_{SMALL}_B{SMALL_B}"] = dict(img_per_s=SMALL_B / wall,
+                                             wall_ms=wall * 1e3, stage_ms=stages)
+
+    def one_by_one(tm):
+        st = {}
+        for i, im in enumerate(imgs):
+            detect_board(im, cfg, ths[i], device=dev, timings=st)
+            if tm is not None:
+                for k, v in st.items():
+                    tm[k] = tm.get(k, 0.0) + v
+    def auto_one_by_one(tm):
+        st = {}
+        for i, im in enumerate(imgs):
+            detect_board_auto(im, cfg, ths[i], device=dev, timings=st)
+            if tm is not None:
+                for k, v in st.items():
+                    tm[k] = tm.get(k, 0.0) + v
+    # detect_board at 16 native shapes; detect_board_auto at the one canvas
+    # shape the batch uses (the Hough-line tables are cached by shape)
+    for name, fn in ((f"detect_board_loop_{Hc}_x{B}", one_by_one),
+                     (f"detect_board_auto_loop_{Hc}_x{B}", auto_one_by_one)):
+        wall, stages = wall_runs(fn, reps=3)
+        tput[name] = dict(img_per_s=B / wall, wall_ms=wall * 1e3,
+                          stage_ms=stages)
+    for name, t in tput.items():
+        log("batch", f"{name}: {t['img_per_s']:.2f} img/s warm (wall "
+            f"{t['wall_ms']:.1f} ms, median); stages (summed over the loop "
+            f"for detect_board) " + ", ".join(f"{k} {v:.1f} ms"
+                                              for k, v in t["stage_ms"].items()))
+    return paths, tput
+
+
 def main() -> int:
     import torch
 
@@ -713,18 +1161,31 @@ def main() -> int:
 
     cfg = DetectionConfig()
     rgb, stones = render_diagram()
-    kernels = phase_kernels(dev, rgb, cfg)
+    batch = batch_images()
+    kernels = phase_kernels(dev, rgb, cfg, batch)
     phase_tables(dev)
     launches, _wall, _stages = phase_main_path(dev, rgb, stones, cfg)
     rerun_ms = phase_overflow(dev, cfg)
-    phase_profile(kernels)  # last: the profiler's hooks could slow the wall
+    paths, tput = phase_batch(dev, cfg, batch)
+    phase_profile(kernels)  # late: the profiler's hooks could slow the wall
+    tput[f"bucket_batch_{SIZE}_B{len(batch)}"].update(phase_busy(dev, cfg, batch))
+    # K1's profile once more, after the busy profile's ~17,600 events, for
+    # the record of whether a long profile makes the next one drop events
+    # (logged, not asserted: phase 7 holds K1 to one launch and one read)
+    n, n_mine, n_d2h, _, _ = profile_call(kernels["K1"]["call"],
+                                          KERNEL_NAMES["K1"], 5)
+    log("profile", f"K1 main path after the busy profile: per call {n:g} "
+        f"kernel launches ({n_mine:g} of {KERNEL_NAMES['K1']}), {n_d2h:g} "
+        "device-to-host copies")
 
-    names = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
-    zero = [k for k, m in names.items() if launches[m] <= 0]
-    if zero:
-        raise AssertionError(f"kernels not launched by the main path: {zero}")
-    log("launches", "main-path launches: "
-        + ", ".join(f"{k} {launches[m]}" for k, m in names.items()))
+    names = COUNTERS
+    paths = {f"detect_board {SIZE}": {k: launches[m] for k, m in names.items()},
+             **paths}
+    for path, counts in paths.items():
+        zero = [k for k in names if counts[k] <= 0]
+        if zero:
+            raise AssertionError(f"kernels not launched by {path}: {zero}")
+        log("launches", f"{path}: " + ", ".join(f"{k} {counts[k]}" for k in names))
 
     meta = {
         "K1": ("hysteresis", "img2sgf_tpu_torch/csrc/hysteresis.cu",
@@ -742,18 +1203,24 @@ def main() -> int:
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
-               "kernel_ms": r["kernel_ms"]}
+               "kernel_ms": r["kernel_ms"],
+               "launches_by_path": {p: c[k] for p, c in paths.items()}}
+        fields = ("label", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
         if k == "K1":
             row["sweeps"] = r["sweeps"]
+            row["cases"] = [{f: c[f] for f in fields + ("sweeps",)}
+                            for c in r["cases"][1:]]
+        if k == "K2":
+            row["cases"] = [{f: c[f] for f in fields + ("valid",)}
+                            for c in r["cases"][1:]]
         if k == "K3":
             row["label"], row["wanted"] = r["label"], r["wanted"]
-            row["cases"] = [{f: c[f] for f in ("label", "max_r", "wanted",
-                                               "ms", "kernel_ms", "plain_ms",
-                                               "bound_ms", "bound_by")}
+            row["cases"] = [{f: c[f] for f in fields + ("max_r", "wanted")}
                             for c in r["cases"]]
             row["overflow_rerun_wall_ms"] = rerun_ms
         rows.append(row)
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"throughput": tput}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

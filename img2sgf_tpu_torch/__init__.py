@@ -10,6 +10,14 @@ version instead.
 
 from .config import DetectionConfig, choose_line_threshold, from_jax_config
 from .core import BLACK, WHITE, Alignment, BoardStates, guess_side_to_move, to_sgf
+from .pipeline import (
+    BoardResult,
+    bucket_dim,
+    detect_board,
+    detect_board_auto,
+    detect_board_batch,
+    detect_board_bucket_batch,
+)
 
 __version__ = "0.1.0"
 
@@ -23,4 +31,10 @@ __all__ = [
     "BoardStates",
     "guess_side_to_move",
     "to_sgf",
+    "BoardResult",
+    "bucket_dim",
+    "detect_board",
+    "detect_board_auto",
+    "detect_board_batch",
+    "detect_board_bucket_batch",
 ]

@@ -36,10 +36,12 @@ def window_means(integral, y0, y1, x0, x1):
 
 
 def intersection_intensities(grey_u8, hc, vc, hsize, vsize, hspace, vspace,
-                             board_size: int):
+                             board_size: int, hw=None):
     """average_intensity for every board point (:468-481), [board_size,
-    board_size] f32 indexed [i, j] = (column i of vc, row j of hc)."""
-    H, W = grey_u8.shape
+    board_size] f32 indexed [i, j] = (column i of vc, row j of hc). hw=(h, w)
+    (ints): content dims inside a fixed canvas, which bound the windows as
+    the image's own size does at native size (:472-475)."""
+    H, W = grey_u8.shape if hw is None else (int(hw[0]), int(hw[1]))
     dev = grey_u8.device
     integral = integral_image(grey_u8)
     ii = torch.arange(board_size, device=dev)
@@ -60,8 +62,9 @@ def intersection_intensities(grey_u8, hc, vc, hsize, vsize, hspace, vspace,
 
 
 def identify_board(grey_u8, circles_xyr, circles_valid, grid,
-                   black_stone_threshold, board_size: int):
-    """Snap circles to grid points and classify colours (:497-543)."""
+                   black_stone_threshold, board_size: int, hw=None):
+    """Snap circles to grid points and classify colours (:497-543); hw as
+    in intersection_intensities."""
     dev = grey_u8.device
     hc = grid["hcentres_complete"]
     vc = grid["vcentres_complete"]
@@ -75,7 +78,7 @@ def identify_board(grey_u8, circles_xyr, circles_valid, grid,
 
     inten = intersection_intensities(
         grey_u8, hc, vc, hsize, vsize, grid["hspace"], grid["vspace"],
-        board_size)
+        board_size, hw=hw)
     thr = torch.tensor(black_stone_threshold, dtype=torch.float32, device=dev)
     black = stone & (inten <= thr)
     white = stone & ~black

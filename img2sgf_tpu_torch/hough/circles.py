@@ -175,18 +175,30 @@ def _f32(x: float, dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
+def _content(hw, H: int, W: int, ndim: int):
+    """Content dims of a pool, shaped to broadcast over [P, ...] tensors of
+    `ndim` dims: the canvas (H, W) without hw, else hw's [P] tensors. OpenCV
+    scans the accumulator over [1, h-2] x [1, w-2] of the content block."""
+    if hw is None:
+        return H, W
+    shape = (-1,) + (1,) * (ndim - 1)
+    return hw[0].reshape(shape), hw[1].reshape(shape)
+
+
 def centre_candidates(acc, acc_threshold: float, top_k: int,
                       margin: float | None = None,
-                      select_min: float | None = None):
+                      select_min: float | None = None, hw=None):
     """The top_k accumulator 4-neighbour maxima > threshold of each plane
     of acc [P, H, W], as a set in stream order with a valid prefix.
     Returns (ys, xs, votes, valid, n_live[, n_margin]); border cells are
-    excluded (OpenCV scans y, x in [1, size-2])."""
+    excluded (OpenCV scans y, x in [1, size-2]; with hw=(hs, ws) [P] the
+    size is each plane's content block)."""
     P, H, W = acc.shape
     dev = acc.device
+    h, w = _content(hw, H, W, 3)
     ys_i = torch.arange(H, device=dev)[:, None]
     xs_i = torch.arange(W, device=dev)[None, :]
-    interior = (ys_i >= 1) & (ys_i <= H - 2) & (xs_i >= 1) & (xs_i <= W - 2)
+    interior = (ys_i >= 1) & (ys_i <= h - 2) & (xs_i >= 1) & (xs_i <= w - 2)
     is_max = (
         (acc > _f32(acc_threshold, dev))
         & (acc > shift2d(acc, 0, 1))
@@ -211,11 +223,12 @@ def centre_candidates(acc, acc_threshold: float, top_k: int,
 def propose_from_acc(acc, acc_threshold: float, top_k: int,
                      threshold_factor: float = 0.5,
                      margin_factor: float | None = None,
-                     select_floor: float | None = None):
+                     select_floor: float | None = None, hw=None):
     """Budget-dependent proposal selection: (ys, xs, valid) [P, top_k] and
     the exact margin-gated saturation flag sat [P] (more qualifying maxima
     than slots, with the top_k'th at or above margin_factor *
-    acc_threshold; see the JAX package's propose_from_acc)."""
+    acc_threshold; see the JAX package's propose_from_acc). hw=(hs, ws):
+    per-plane content dims bounding the scan."""
     P, H, W = acc.shape
     floor = threshold_factor * acc_threshold
     margin = None
@@ -225,7 +238,7 @@ def propose_from_acc(acc, acc_threshold: float, top_k: int,
     if select_floor is not None and select_floor > floor:
         sel_min = select_floor
     out = centre_candidates(acc, floor, top_k, margin=margin,
-                            select_min=sel_min)
+                            select_min=sel_min, hw=hw)
     ys, xs, _votes, valid, n_live = out[:5]
     sat = n_live > top_k
     if margin is not None:
@@ -245,11 +258,11 @@ _CENTRE = np.array([i * 5 + j for i in (1, 2, 3) for j in (1, 2, 3)])
 
 
 def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
-                    W: int):
+                    W: int, hw=None):
     """Stage 2b: every cell of each proposal's central 3x3 that passes
     OpenCV's candidate test on its exact 5x5 votes (> threshold, > left,
-    >= right, > up, >= down, interior). Returns (ys_c, xs_c, votes, ok),
-    each [P, K*9]."""
+    >= right, > up, >= down, interior of the content block hw, else of the
+    canvas). Returns (ys_c, xs_c, votes, ok), each [P, K*9]."""
     P, K, cells = patch.shape[0], patch.shape[1], patch.shape[2]
     if cells != 5:
         raise ValueError("the port's recentre takes 5x5 patches only")
@@ -267,7 +280,8 @@ def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
     offx = (c % 5 - 2).to(torch.int64)
     cy = ys[..., None].long() + offy
     cx = xs[..., None].long() + offx
-    interior = (cy >= 1) & (cy <= H - 2) & (cx >= 1) & (cx <= W - 2)
+    h, w = _content(hw, H, W, 3)
+    interior = (cy >= 1) & (cy <= h - 2) & (cx >= 1) & (cx <= w - 2)
     ok = valid[..., None] & nms_ok & (v > _f32(acc_threshold, dev)) & interior
     return (cy.clamp(0, H - 1).reshape(P, -1), cx.clamp(0, W - 1).reshape(P, -1),
             v.reshape(P, -1), ok.reshape(P, -1))
@@ -290,11 +304,12 @@ def _ring_neighbours(off):
 
 
 def provisional_ring(patch, ys, xs, valid, acc_threshold: float, H: int,
-                     W: int, budget: int):
+                     W: int, budget: int, hw=None):
     """Outer-ring (Chebyshev-2) cells of each 5x5 patch passing the partial
-    OpenCV test (out-of-patch neighbours pass). Returns (ys_p, xs_p,
-    valid_p) [P, budget] (the top-`budget` set by votes, stream order) and
-    n_live [P], the count before truncation."""
+    OpenCV test (out-of-patch neighbours pass; interior of the content
+    block hw, else of the canvas). Returns (ys_p, xs_p, valid_p)
+    [P, budget] (the top-`budget` set by votes, stream order) and n_live
+    [P], the count before truncation."""
     P, K = patch.shape[:2]
     dev = patch.device
     flat = patch.reshape(P, K, 25)
@@ -316,7 +331,8 @@ def provisional_ring(patch, ys, xs, valid, acc_threshold: float, H: int,
     )
     cy = ys[..., None].long() + (ring // 5 - 2)
     cx = xs[..., None].long() + (ring % 5 - 2)
-    interior = (cy >= 1) & (cy <= H - 2) & (cx >= 1) & (cx <= W - 2)
+    h, w = _content(hw, H, W, 3)
+    interior = (cy >= 1) & (cy <= h - 2) & (cx >= 1) & (cx <= w - 2)
     ok = valid[..., None] & ok & interior
     score = torch.where(ok, v, minus1).reshape(P, -1)
     top, idx, live = top_k_set_by_count(score, budget)
@@ -382,18 +398,20 @@ def compact_candidates(ys, xs, votes, valid, W: int, budget: int,
 def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
                       acc_threshold: float, H: int, W: int,
                       prov_budget: int = 512, peak_budget: int | None = None,
-                      dedupe_first: bool = False):
+                      dedupe_first: bool = False, hw=None):
     """Stages 2a-2c over a pool: 5x5 exact votes and multi-emission
     recentre, the +-2 ring verified by a 3x3 exact pass, and (peak_budget
-    set) dedupe + compaction. Returns (ys_c, xs_c, votes, valid2, sat)."""
+    set) dedupe + compaction. hw=(hs, ws): per-plane content dims bounding
+    the accumulator interior. Returns (ys_c, xs_c, votes, valid2, sat)."""
     patch = circle_votes(emask, sx, sy, ys, xs, valid, min_r, max_r, cells=5)
     ys_c, xs_c, votes_c, ok_c = circle_recentre(
-        patch, ys, xs, valid, acc_threshold, H, W)
+        patch, ys, xs, valid, acc_threshold, H, W, hw=hw)
     ys_p, xs_p, valid_p, n_ring = provisional_ring(
-        patch, ys, xs, valid, acc_threshold, H, W, prov_budget)
+        patch, ys, xs, valid, acc_threshold, H, W, prov_budget, hw=hw)
     patch3 = circle_votes(emask, sx, sy, ys_p, xs_p, valid_p, min_r, max_r,
                           cells=3)
     c = patch3[:, :, 1, 1]
+    h, w = _content(hw, H, W, 2)
     ok_p = (
         valid_p
         & (c > _f32(acc_threshold, c.device))
@@ -401,7 +419,7 @@ def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
         & (c >= patch3[:, :, 1, 2])
         & (c > patch3[:, :, 0, 1])
         & (c >= patch3[:, :, 2, 1])
-        & (ys_p >= 1) & (ys_p <= H - 2) & (xs_p >= 1) & (xs_p <= W - 2)
+        & (ys_p >= 1) & (ys_p <= h - 2) & (xs_p >= 1) & (xs_p <= w - 2)
     )
     ys_all = torch.cat([ys_c, ys_p], dim=1)
     xs_all = torch.cat([xs_c, xs_p], dim=1)

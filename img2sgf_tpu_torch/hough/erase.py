@@ -12,12 +12,16 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.common import region_mask
+
 _DOT = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
 
 
-def erase_circles(edges_u8, circles_xyr, valid):
+def erase_circles(edges_u8, circles_xyr, valid, hw=None):
     """edges_u8: [H, W] uint8; circles_xyr: [C, 3] (cx, cy, r); valid: [C].
-    Returns uint8 [H, W]."""
+    Returns uint8 [H, W]. hw=(h, w): content dims inside a fixed canvas;
+    the output is zero outside the content block, as cv.rectangle and
+    cv.circle clip their painting to the image."""
     H, W = edges_u8.shape
     dev = edges_u8.device
     circ = circles_xyr[valid]  # valid circles, in list order
@@ -61,4 +65,7 @@ def erase_circles(edges_u8, circles_xyr, valid):
     dot[py[put].long(), px[put].long()] = True
 
     out = torch.where(boxed, torch.zeros_like(edges_u8), edges_u8)
-    return torch.where(dot, torch.full_like(edges_u8, 255), out)
+    out = torch.where(dot, torch.full_like(edges_u8, 255), out)
+    if hw is not None:
+        out = out * region_mask((H, W), hw[0], hw[1], dev)
+    return out

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import pad_reflect101, pad_replicate
+from .common import border_remap, pad_reflect101, pad_replicate
 
 
 def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
@@ -33,11 +33,18 @@ def gaussian_kernel_fixed(ksize: int, sigma: float) -> np.ndarray:
     return base
 
 
-def gaussian_blur(img_u8, ksize: int, sigma: float):
+def gaussian_blur(img_u8, ksize: int, sigma: float, hw=None):
     """Separable Gaussian on uint8 [..., H, W], BORDER_REFLECT_101: integer
-    Q8.8 taps, exact int32 accumulation, (x + 2^15) >> 16 rounding."""
+    Q8.8 taps, exact int32 accumulation, (x + 2^15) >> 16 rounding.
+
+    hw=(h, w): content dims inside a fixed canvas. As in the JAX package the
+    band past the content is remapped and the canvas is then reflected about
+    its own edge, so at a margin of 1 or 2 px (less than the radius) pixels
+    near the content edge differ from the native-size blur."""
     if ksize == 1:
         return img_u8
+    if hw is not None:
+        img_u8 = border_remap(img_u8, hw[0], hw[1], "reflect101")
     kq = gaussian_kernel_fixed(ksize, sigma)
     r = ksize // 2
     x = pad_reflect101(img_u8.to(torch.int32), r)
@@ -85,11 +92,14 @@ def _median_network(n: int):
     return list(reversed(keep))
 
 
-def median_blur(img_u8, ksize: int):
+def median_blur(img_u8, ksize: int, hw=None):
     """Exact median filter on uint8 [..., H, W], BORDER_REPLICATE: the
-    pruned comparator network over the k*k shifted window planes."""
+    pruned comparator network over the k*k shifted window planes. hw=(h, w):
+    content dims inside a fixed canvas."""
     if ksize == 1:
         return img_u8
+    if hw is not None:
+        img_u8 = border_remap(img_u8, hw[0], hw[1], "replicate")
     r = ksize // 2
     x = pad_replicate(img_u8, r)
     H, W = img_u8.shape[-2], img_u8.shape[-1]
@@ -106,13 +116,13 @@ def median_blur(img_u8, ksize: int):
     return planes[n // 2]
 
 
-def blur_pyramid(grey_u8, edges_u8, maxblur: int = 3):
+def blur_pyramid(grey_u8, edges_u8, maxblur: int = 3, hw=None):
     """The reference's 2 + 2*(maxblur+1) circle-detection variants
     (img2sgf.py:171-175): [grey, edges, median_1, gauss_1, median_3,
-    gauss_3, ...] as a [V, H, W] uint8 stack."""
+    gauss_3, ...] as a [..., V, H, W] uint8 stack of [..., H, W] images."""
     variants = [grey_u8, edges_u8]
     for i in range(maxblur + 1):
         b = 2 * i + 1
-        variants.append(median_blur(grey_u8, b))
-        variants.append(gaussian_blur(grey_u8, b, float(b)))
-    return torch.stack(variants, dim=0)
+        variants.append(median_blur(grey_u8, b, hw=hw))
+        variants.append(gaussian_blur(grey_u8, b, float(b), hw=hw))
+    return torch.stack(variants, dim=-3)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .common import region_mask
+
 
 def pil_luma(rgb_u8):
     """PIL convert('L') luma: (R*19595 + G*38470 + B*7471 + 32768) >> 16."""
@@ -43,19 +45,34 @@ def _pil_blend_trunc(degenerate_f, img_f, alpha: float):
     return torch.floor(out).to(torch.uint8)
 
 
-def enhance_contrast(rgb_u8, contrast: float):
+def enhance_contrast(rgb_u8, contrast: float, hw=None):
     """PIL ImageEnhance.Contrast with the reference's slider remap
-    (img2sgf.py:142-144); the degenerate image is the solid grey
-    int(mean(L) + 0.5)."""
+    (img2sgf.py:142-144) on [..., H, W, 3]; the degenerate image is the
+    solid grey int(mean(L) + 0.5) of each image.
+
+    hw=(h, w): content dims inside a fixed canvas (one per image); the mean
+    is taken over the content block with the count h*w. The count is then
+    a run-time value for XLA, which divides by it and adds the 0.5 in a
+    separate rounding, instead of the fused reciprocal of the native path.
+    """
     alpha = 102.0 / (101.0 - contrast) - 1.0
     luma = pil_luma(rgb_u8)
     dev = rgb_u8.device
-    total = luma.sum().to(torch.float32)
-    count = torch.tensor(float(luma.numel()), dtype=torch.float32, device=dev)
-    rcp = torch.ones((), dtype=torch.float32, device=dev) / count
     half = torch.tensor(0.5, dtype=torch.float32, device=dev)
-    mean = torch.floor(_fma_f32(total, rcp, half))
-    return _pil_blend_trunc(mean, rgb_u8.to(torch.float32), alpha)
+    if hw is None:
+        total = luma.sum(dim=(-2, -1)).to(torch.float32)
+        count = torch.tensor(float(luma.shape[-2] * luma.shape[-1]),
+                             dtype=torch.float32, device=dev)
+        rcp = torch.ones((), dtype=torch.float32, device=dev) / count
+        mean = torch.floor(_fma_f32(total, rcp, half))
+    else:
+        h = torch.as_tensor(hw[0], device=dev).long()
+        w = torch.as_tensor(hw[1], device=dev).long()
+        inside = region_mask(luma.shape[-2:], h, w, dev)
+        total = (luma * inside).sum(dim=(-2, -1)).to(torch.float32)
+        mean = torch.floor(total / (h * w).to(torch.float32) + half)
+    return _pil_blend_trunc(mean[..., None, None, None],
+                            rgb_u8.to(torch.float32), alpha)
 
 
 def enhance_brightness(rgb_u8, brightness: float):
@@ -68,6 +85,8 @@ def enhance_brightness(rgb_u8, brightness: float):
     return torch.floor(out).to(torch.uint8)
 
 
-def preprocess(rgb_u8, contrast: float, brightness: float):
-    """Contrast then brightness enhancement (img2sgf.py:142-150)."""
-    return enhance_brightness(enhance_contrast(rgb_u8, contrast), brightness)
+def preprocess(rgb_u8, contrast: float, brightness: float, hw=None):
+    """Contrast then brightness enhancement (img2sgf.py:142-150) of
+    [..., H, W, 3] images; hw as in enhance_contrast."""
+    return enhance_brightness(enhance_contrast(rgb_u8, contrast, hw=hw),
+                              brightness)

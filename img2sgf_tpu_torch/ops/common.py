@@ -1,10 +1,65 @@
-"""Shared small helpers for image ops: shifts, border pads, 3x3 dilation
-(port of img2sgf_tpu/ops/common.py; the canvas helpers border_remap and
-region_mask belong to the bucketed path, which is not ported yet)."""
+"""Shared small helpers for image ops: shifts, border pads, 3x3 dilation and
+the canvas helpers of the shape-bucketed path, border_remap and region_mask
+(port of img2sgf_tpu/ops/common.py).
+
+Content dims (h, w) are Python ints, 0-d tensors, or int tensors over the
+leading dims of the image they describe: [B] for a batch of images, [P] for
+a pool of planes. They broadcast over any further leading dims (the colour
+channels of a [B, C, H, W] stack)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def _lead(n, x):
+    """Content dim n as an int64 tensor: 0-d for one dim, else shaped to
+    broadcast over x's leading dims (x.shape[:-2]) with one trailing axis
+    for the row or column."""
+    n = torch.as_tensor(n, device=x.device).long()
+    if n.ndim == 0:
+        return n
+    return n.reshape(n.shape + (1,) * (x.ndim - 1 - n.ndim))
+
+
+def border_remap(x, h, w, mode: str):
+    """Emulate an op's virtual border inside a fixed-size canvas.
+
+    x: [..., Hb, Wb] canvas whose top-left [h, w] block is real content.
+    Rewrites the padding band so that any local op reading <= (Hb - h) px
+    past the content edge sees what OpenCV's border mode would supply at
+    native size: 'replicate' or 'reflect101'. Content cells are unchanged.
+    """
+    H, W = x.shape[-2], x.shape[-1]
+    hh, ww = _lead(h, x), _lead(w, x)
+    iy = torch.arange(H, device=x.device)
+    ix = torch.arange(W, device=x.device)
+    if mode == "replicate":
+        ry = torch.minimum(iy, hh - 1)
+        rx = torch.minimum(ix, ww - 1)
+    elif mode == "reflect101":
+        ry = torch.minimum(torch.where(iy < hh, iy, 2 * hh - 2 - iy).clamp(min=0),
+                           hh - 1)
+        rx = torch.minimum(torch.where(ix < ww, ix, 2 * ww - 2 - ix).clamp(min=0),
+                           ww - 1)
+    else:
+        raise ValueError(mode)
+    if ry.ndim == 1:
+        return x.index_select(-2, ry).index_select(-1, rx)
+    shape = x.shape
+    x = x.gather(-2, ry.unsqueeze(-1).expand(shape))
+    return x.gather(-1, rx.unsqueeze(-2).expand(shape))
+
+
+def region_mask(shape2d, h, w, device=None):
+    """Bool mask of the real-content block: [*h.shape, Hb, Wb] (h, w ints,
+    or int tensors of one shape)."""
+    Hb, Wb = shape2d
+    h = torch.as_tensor(h, device=device).long()
+    w = torch.as_tensor(w, device=device).long()
+    ys = torch.arange(Hb, device=h.device)[:, None]
+    xs = torch.arange(Wb, device=h.device)[None, :]
+    return (ys < h[..., None, None]) & (xs < w[..., None, None])
 
 
 def shift2d(x, dy: int, dx: int, fill=0):

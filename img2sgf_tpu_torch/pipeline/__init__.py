@@ -1,3 +1,11 @@
-from .detect import BoardResult, detect_board
+from .detect import (
+    BoardResult,
+    bucket_dim,
+    detect_board,
+    detect_board_auto,
+    detect_board_batch,
+    detect_board_bucket_batch,
+)
 
-__all__ = ["BoardResult", "detect_board"]
+__all__ = ["BoardResult", "bucket_dim", "detect_board", "detect_board_auto",
+           "detect_board_batch", "detect_board_bucket_batch"]

@@ -1,13 +1,27 @@
-"""The detection pipeline: RGB image -> BoardResult (port of the native-size
-path of img2sgf_tpu/pipeline/detect.py, img2sgf.py:117-204, 497-576).
+"""The detection pipeline: RGB images -> BoardResult (port of
+img2sgf_tpu/pipeline/detect.py, img2sgf.py:117-204, 497-576).
 
-Four stages, each a function here: pre (preprocess, grey, outer Canny, blur
-pyramid), plane state (internal Canny, walk steps, cascade accumulator per
-unique plane), select (proposals, exact-vote rescore, recentre and ring,
-compaction, radius histogram, finalize, and the rerun of saturated planes at
-the overflow budgets), post (erasure, Hough lines, clustering, grid
-validation, classification). PyTorch runs eagerly, so the overflow rerun is
-a plain Python branch over the saturated planes instead of lax.map/lax.cond.
+Entry points: detect_board (one image, native size or a canvas with
+content_hw), detect_board_auto (one image padded into its canvas bucket),
+detect_board_batch ([B, H, W, 3] of one size) and detect_board_bucket_batch
+(canvases of one bucket holding images of mixed native sizes). All run the
+same four stages over a batch, one image being a batch of one: pre
+(preprocess, grey, outer Canny of the whole batch in one hysteresis call,
+blur pyramid), plane state (internal Canny, walk steps, cascade accumulator
+over the pool of every image's unique planes), select (proposals,
+exact-vote rescore, recentre and ring, compaction, radius histogram,
+finalize, and one rerun of the saturated planes of every image at the
+overflow budgets), post (erasure, Hough lines, clustering, grid validation,
+classification; a Python loop over the images). PyTorch runs eagerly, so
+the overflow rerun is a plain Python branch over the saturated planes
+instead of lax.map/lax.cond.
+
+Content dims (the shape-bucketed mode): a canvas whose top-left [h, w]
+block is the real image gives, inside that block, the results of detection
+at native size (every op emulates its OpenCV border inside the canvas and
+masks its output to the block), except where the JAX package itself
+differs and the port follows it: the Gaussian blur at a canvas margin of
+1-2 px (ops/blur.py) and the contrast mean at an exact .5 (ops/color.py).
 """
 
 from __future__ import annotations
@@ -36,8 +50,9 @@ from ..hough.circles import (
 from ..hough.erase import erase_circles
 from ..hough.lines import hough_lines_intercepts
 from ..ops.blur import blur_pyramid
-from ..ops.canny import canny, canny_pool
+from ..ops.canny import canny_pool, canny_rgb_pool
 from ..ops.color import grey_bgr_quirk, preprocess
+from ..ops.common import border_remap
 from ..ops.sobel import sobel3
 
 
@@ -92,14 +107,16 @@ def _variant_dedup(cfg: DetectionConfig, V: int):
     return keep, expand
 
 
-def _pre_circles(rgb_u8, cfg: DetectionConfig):
-    """Preprocess through the blur pyramid (img2sgf.py:142-175). Returns
-    (grey, outer Canny edges, variants [V, H, W])."""
-    rgb = preprocess(rgb_u8, cfg.contrast, cfg.brightness)
+def _pre_circles(rgb_u8, cfg: DetectionConfig, hw=None):
+    """Preprocess through the blur pyramid (img2sgf.py:142-175) of a
+    [B, H, W, 3] batch, whose outer Canny is one shared hysteresis run
+    (canny_rgb_pool). hw=(hs, ws): [B] content dims. Returns (grey [B, H, W],
+    outer Canny edges [B, H, W], variants [B, V, H, W])."""
+    rgb = preprocess(rgb_u8, cfg.contrast, cfg.brightness, hw=hw)
     grey = grey_bgr_quirk(rgb)
-    edges = canny(rgb, cfg.edge_min, cfg.edge_max, cfg.gradient_l2,
-                  iters=cfg.hysteresis_iters)
-    variants = blur_pyramid(grey, edges, cfg.maxblur)
+    edges = canny_rgb_pool(rgb, cfg.edge_min, cfg.edge_max, cfg.gradient_l2,
+                           iters=cfg.hysteresis_iters, hw_batch=hw)
+    variants = blur_pyramid(grey, edges, cfg.maxblur, hw=hw)
     return grey, edges, variants
 
 
@@ -115,13 +132,18 @@ def _check_ported(cfg: DetectionConfig):
                          "is not ported")
 
 
-def _plane_state_pool(planes, cfg: DetectionConfig):
+def _plane_state_pool(planes, cfg: DetectionConfig, hw_planes=None):
     """Budget-independent circle state of a [P, H, W] plane pool: internal
-    Canny, walk steps and the cascade accumulator. Returns dict(emask, sx,
-    sy, acc)."""
+    Canny, walk steps and the cascade accumulator. hw_planes=(hs, ws): [P]
+    content dims; Sobel then reads the replicate-remapped plane. Returns
+    dict(emask, sx, sy, acc), plus hs and ws with hw_planes: the state
+    carries its planes' content dims into the selection stages."""
     _check_ported(cfg)
     edges = canny_pool(planes, max(cfg.circle_canny_high / 2, 1),
-                       cfg.circle_canny_high, iters=cfg.hysteresis_iters)
+                       cfg.circle_canny_high, iters=cfg.hysteresis_iters,
+                       hw_planes=hw_planes)
+    if hw_planes is not None:
+        planes = border_remap(planes, hw_planes[0], hw_planes[1], "replicate")
     dx, dy = sobel3(planes)
     emask = (edges > 0) & ((dx != 0) | (dy != 0))
     sx, sy = pixel_steps(dx, dy)
@@ -130,8 +152,11 @@ def _plane_state_pool(planes, cfg: DetectionConfig):
     acc = vote_accumulator_pool_labels(labels, cfg.num_angle_bins,
                                        cfg.circle_min_radius,
                                        cfg.circle_max_radius)
-    return dict(emask=emask, sx=torch.where(emask, sx, zero),
-                sy=torch.where(emask, sy, zero), acc=acc)
+    st = dict(emask=emask, sx=torch.where(emask, sx, zero),
+              sy=torch.where(emask, sy, zero), acc=acc)
+    if hw_planes is not None:
+        st["hs"], st["ws"] = hw_planes
+    return st
 
 
 def _select_candidates(st, cfg: DetectionConfig, top_k: int | None = None,
@@ -140,9 +165,11 @@ def _select_candidates(st, cfg: DetectionConfig, top_k: int | None = None,
                        dedupe_first: bool = False,
                        margin_filter: bool = False):
     """Proposals and exact candidates from plane state: the inputs of the
-    radius stage. Returns (ys_c, xs_c, valid2 [P, peak_budget], sat [P]):
-    sat flags planes where a capacity truncated candidates."""
+    radius stage, bounded by the state's content dims if it has them.
+    Returns (ys_c, xs_c, valid2 [P, peak_budget], sat [P]): sat flags
+    planes where a capacity truncated candidates."""
     H, W = st["acc"].shape[-2], st["acc"].shape[-1]
+    hw = (st["hs"], st["ws"]) if "hs" in st else None
     top_k = cfg.max_center_candidates if top_k is None else top_k
     prov_budget = cfg.max_ring_candidates if prov_budget is None else prov_budget
     peak_budget = cfg.max_peak_candidates if peak_budget is None else peak_budget
@@ -153,13 +180,13 @@ def _select_candidates(st, cfg: DetectionConfig, top_k: int | None = None,
         st["acc"], cfg.circle_acc_threshold, top_k,
         threshold_factor=cfg.propose_threshold_factor,
         margin_factor=cfg.overflow_margin_factor,
-        select_floor=sel_floor,
+        select_floor=sel_floor, hw=hw,
     )
     ys_c, xs_c, _votes, valid2, ring_sat = circle_candidates(
         st["emask"], st["sx"], st["sy"], ys, xs, pvalid,
         cfg.circle_min_radius, cfg.circle_max_radius,
         cfg.circle_acc_threshold, H, W, prov_budget=prov_budget,
-        peak_budget=peak_budget, dedupe_first=dedupe_first,
+        peak_budget=peak_budget, dedupe_first=dedupe_first, hw=hw,
     )
     return ys_c, xs_c, valid2, psat | ring_sat
 
@@ -195,7 +222,9 @@ def _circles_pooled(st, cfg: DetectionConfig):
     every plane, then the saturated planes alone again at the overflow
     budgets (_overflow_budgets), replacing their base results. Takes the
     plane state (_plane_state_pool), which both passes share, so that
-    callers can time the two stages apart."""
+    callers can time the two stages apart. Over a batch's pool the rerun is
+    one pass over the saturated planes of every image (their state, content
+    dims included, gathered by index)."""
     if cfg.overflow_center_candidates <= cfg.max_center_candidates:
         circles, valid, _ = _circles_from_state(
             st, cfg, dedupe_first=True, margin_filter=True)
@@ -212,9 +241,10 @@ def _circles_pooled(st, cfg: DetectionConfig):
 
 
 def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
-                  line_threshold: float) -> BoardResult:
-    """Erasure through board assembly (img2sgf.py:188-198, 230-576)."""
-    removed = erase_circles(edges, circles, circles_valid)
+                  line_threshold: float, hw=None) -> BoardResult:
+    """Erasure through board assembly (img2sgf.py:188-198, 230-576) of one
+    image; hw=(h, w) ints: content dims inside a fixed canvas."""
+    removed = erase_circles(edges, circles, circles_valid, hw=hw)
     hvals, hvalid, _ = hough_lines_intercepts(
         removed, line_threshold, True, cfg.angle_delta, cfg.max_lines)
     vvals, vlvalid, _ = hough_lines_intercepts(
@@ -235,7 +265,7 @@ def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
 
     fits = valid & (grid["hsize"] <= cfg.board_size) & (grid["vsize"] <= cfg.board_size)
     ident = identify_board(grey, circles, cf_valid, grid,
-                           cfg.black_stone_threshold, cfg.board_size)
+                           cfg.black_stone_threshold, cfg.board_size, hw=hw)
     zero = torch.zeros((), dtype=torch.int32, device=grey.device)
     detected = torch.where(fits, ident["detected_board"], zero)
     full = align_board(detected, grid["hsize"], grid["vsize"], False, False,
@@ -292,26 +322,50 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-@torch.no_grad()
-def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
-                 device="cuda", timings: dict | None = None) -> BoardResult:
-    """Detect a board in rgb_u8 ([H, W, 3] uint8 numpy array or tensor) on
-    `device` at native size. line_threshold defaults to cfg.line_threshold;
-    the CLI passes choose_line_threshold(h, w).
+def _as_images(x, dev: torch.device, ndim: int, what: str):
+    """uint8 images (numpy array or tensor) of `ndim` dims ending in 3
+    channels, on dev."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    x = x.to(dev)
+    if x.dtype != torch.uint8 or x.ndim != ndim or x.shape[-1] != 3:
+        raise ValueError(f"expected {what} uint8, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    return x
+
+
+def _thresholds(line_thresholds, B: int):
+    """Line thresholds as a host list of B floats."""
+    ths = torch.as_tensor(line_thresholds).reshape(-1).tolist()
+    if len(ths) != B:
+        raise ValueError(f"expected {B} line thresholds, got {len(ths)}")
+    return ths
+
+
+def _content_dims(hs, ws, B: int, H: int, W: int):
+    """Content dims as host lists of B ints in [1, H] and [1, W]."""
+    hs = [int(v) for v in torch.as_tensor(hs).reshape(-1).tolist()]
+    ws = [int(v) for v in torch.as_tensor(ws).reshape(-1).tolist()]
+    if len(hs) != B or len(ws) != B:
+        raise ValueError(f"expected {B} content dims, got {len(hs)} and "
+                         f"{len(ws)}")
+    bad = [(h, w) for h, w in zip(hs, ws) if not (1 <= h <= H and 1 <= w <= W)]
+    if bad:
+        raise ValueError(f"content dims {bad} do not fit the {H}x{W} canvas")
+    return hs, ws
+
+
+def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
+                       timings: dict | None):
+    """The four stages over rgb [B, H, W, 3] uint8 on its device.
+    line_thresholds: B floats; hw: None or (hs, ws) host lists of B ints.
+    Returns the B per-image BoardResults.
 
     timings: if a dict is given, the device is synchronised after each
     stage and the stage wall times (seconds) are stored under "pre",
-    "state", "select" and "post".
-    """
-    dev = resolve_device(device)
-    if line_threshold is None:
-        line_threshold = cfg.line_threshold
-    if isinstance(rgb_u8, np.ndarray):
-        rgb_u8 = torch.from_numpy(np.ascontiguousarray(rgb_u8))
-    rgb = rgb_u8.to(dev)
-    if rgb.dtype != torch.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected [H, W, 3] uint8, got {tuple(rgb.shape)} "
-                         f"{rgb.dtype}")
+    "state", "select" and "post"."""
+    dev = rgb.device
+    B, H, W = rgb.shape[:3]
     t = time.perf_counter()
 
     def mark(name):
@@ -322,17 +376,115 @@ def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
             timings[name] = now - t
             t = now
 
-    grey, edges, variants = _pre_circles(rgb, cfg)
-    keep, expand = _variant_dedup(cfg, variants.shape[0])
-    planes = variants[keep]
+    hwb = None if hw is None else tuple(
+        torch.tensor(v, dtype=torch.int64, device=dev) for v in hw)
+    grey, edges, variants = _pre_circles(rgb, cfg, hwb)
+    keep, expand = _variant_dedup(cfg, variants.shape[1])
+    Vu = len(keep)
+    planes = variants[:, keep].reshape(B * Vu, H, W)
+    hwp = None if hwb is None else tuple(v.repeat_interleave(Vu) for v in hwb)
     mark("pre")
-    st = _plane_state_pool(planes, cfg)
+    st = _plane_state_pool(planes, cfg, hwp)
     mark("state")
     vcircles_u, vvalid_u = _circles_pooled(st, cfg)
-    vcircles = vcircles_u[expand]
-    vvalid = vvalid_u[expand]
+    vcircles = vcircles_u.reshape(B, Vu, -1, 3)[:, expand].reshape(B, -1, 3)
+    vvalid = vvalid_u.reshape(B, Vu, -1)[:, expand].reshape(B, -1)
     mark("select")
-    res = _post_circles(grey, edges, vcircles.reshape(-1, 3),
-                        vvalid.reshape(-1), cfg, float(line_threshold))
+    rows = [_post_circles(grey[i], edges[i], vcircles[i], vvalid[i], cfg,
+                          float(line_thresholds[i]),
+                          None if hw is None else (hw[0][i], hw[1][i]))
+            for i in range(B)]
     mark("post")
-    return res
+    return rows
+
+
+def _stack(rows) -> BoardResult:
+    """Per-image BoardResults -> one with a leading [B] on every field."""
+    return BoardResult(**{f.name: torch.stack([getattr(r, f.name) for r in rows])
+                          for f in dataclasses.fields(BoardResult)})
+
+
+@torch.no_grad()
+def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None,
+                 content_hw=None, *, device="cuda",
+                 timings: dict | None = None) -> BoardResult:
+    """Detect a board in rgb_u8 ([H, W, 3] uint8 numpy array or tensor) on
+    `device`. line_threshold defaults to cfg.line_threshold; the CLI passes
+    choose_line_threshold(h, w).
+
+    content_hw=(h, w): shape-bucketed mode; rgb_u8 is a canvas whose
+    top-left [h, w] block is the real image, and the results inside that
+    block are those of native-size detection (see the module docstring).
+
+    timings: per-stage wall times, as _detect_batch_impl stores them.
+    """
+    dev = resolve_device(device)
+    if line_threshold is None:
+        line_threshold = cfg.line_threshold
+    rgb = _as_images(rgb_u8, dev, 3, "[H, W, 3]")
+    hw = None
+    if content_hw is not None:
+        hw = _content_dims([content_hw[0]], [content_hw[1]], 1, *rgb.shape[:2])
+    return _detect_batch_impl(rgb[None], cfg, [line_threshold], hw, timings)[0]
+
+
+# canvas-size ladder of the shape-bucketed path, as in the JAX package: one
+# canvas per bucket instead of one per image shape (the batch path groups
+# mixed sizes by it); ratios ~1.25 bound the padding to < 2x the area
+_BUCKETS = (128, 160, 192, 256, 320, 384, 512, 640, 768, 960, 1280, 1600, 2048)
+
+
+def bucket_dim(n: int) -> int:
+    """Smallest ladder canvas dim >= n (multiples of 512 beyond the ladder)."""
+    for b in _BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // 512) * 512
+
+
+@torch.no_grad()
+def detect_board_auto(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
+                      device="cuda", timings: dict | None = None) -> BoardResult:
+    """One [h, w, 3] image through the shape-bucketed path: padded
+    top-left into its bucket_dim canvas, detected with content_hw, and the
+    image-plane fields (grey, edges, circles_removed) cropped back to
+    [h, w]."""
+    dev = resolve_device(device)
+    rgb = _as_images(rgb_u8, dev, 3, "[h, w, 3]")
+    h, w = rgb.shape[:2]
+    canvas = torch.zeros((bucket_dim(h), bucket_dim(w), 3), dtype=torch.uint8,
+                         device=dev)
+    canvas[:h, :w] = rgb
+    res = detect_board(canvas, cfg, line_threshold, (h, w), device=dev,
+                       timings=timings)
+    return dataclasses.replace(res, grey=res.grey[:h, :w],
+                               edges=res.edges[:h, :w],
+                               circles_removed=res.circles_removed[:h, :w])
+
+
+@torch.no_grad()
+def detect_board_batch(rgb_u8_batch, cfg: DetectionConfig, line_thresholds, *,
+                       device="cuda", timings: dict | None = None) -> BoardResult:
+    """Detection over a [B, H, W, 3] uint8 batch of one size at native size;
+    line_thresholds: B values. Every BoardResult field has a leading [B]."""
+    dev = resolve_device(device)
+    rgb = _as_images(rgb_u8_batch, dev, 4, "[B, H, W, 3]")
+    ths = _thresholds(line_thresholds, rgb.shape[0])
+    return _stack(_detect_batch_impl(rgb, cfg, ths, None, timings))
+
+
+@torch.no_grad()
+def detect_board_bucket_batch(canvases, cfg: DetectionConfig, line_thresholds,
+                              hs, ws, *, device="cuda",
+                              timings: dict | None = None) -> BoardResult:
+    """Batched shape-bucketed detection: [B, Hc, Wc, 3] canvases whose
+    top-left [hs[i], ws[i]] blocks are the real images (mixed native sizes
+    in one bucket, the CLI's --batch path). Row i equals detect_board_auto
+    of image i; image-plane fields stay canvas-sized, as in the JAX
+    package."""
+    dev = resolve_device(device)
+    rgb = _as_images(canvases, dev, 4, "[B, Hc, Wc, 3]")
+    B, H, W = rgb.shape[:3]
+    ths = _thresholds(line_thresholds, B)
+    hw = _content_dims(hs, ws, B, H, W)
+    return _stack(_detect_batch_impl(rgb, cfg, ths, hw, timings))

@@ -110,7 +110,7 @@ def planes():
     """[8, 80, 80] unique blur-pyramid planes of two seeded scenes."""
     out = []
     for seed in (1, 2):
-        _, _, v = tdetect._pre_circles(T(_scene(seed)), CFG_T)
+        v = tdetect._pre_circles(T(_scene(seed))[None], CFG_T)[2][0]
         keep, _ = tdetect._variant_dedup(CFG_T, v.shape[0])
         out.append(v[keep][:4])
     return torch.cat(out).numpy()
@@ -602,7 +602,7 @@ def test_overflow_branch_equals_big_budget():
         max_ring_candidates=16, overflow_ring_candidates=64,
         max_circles_per_variant=16, hysteresis_iters=4,
         overflow_margin_factor=0.0)
-    _, _, v = tdetect._pre_circles(T(noisy), cfg)
+    v = tdetect._pre_circles(T(noisy)[None], cfg)[2][0]
     keep, _ = tdetect._variant_dedup(cfg, v.shape[0])
     st = tdetect._plane_state_pool(v[keep], cfg)
     _, _, sat = tdetect._circles_from_state(st, cfg, margin_filter=True)

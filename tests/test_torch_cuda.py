@@ -16,7 +16,8 @@ from img2sgf_tpu_torch.config import DetectionConfig
 from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
 from img2sgf_tpu_torch.ops import hysteresis_cuda
 from img2sgf_tpu_torch.ops.canny import pack_planes
-from img2sgf_tpu_torch.pipeline import detect_board
+from img2sgf_tpu_torch.pipeline import detect_board, detect_board_bucket_batch
+from img2sgf_tpu_torch.pipeline import detect as pipeline_detect
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +62,20 @@ def test_k1_staircase_equals_plain(dev, iters):
     cand = np.stack([c for _, c in pairs])
     sweeps = _k1_case(dev, strong, cand, iters)
     assert sweeps == iters if iters < 256 else 3 < sweeps < 256
+
+
+@pytest.mark.parametrize("P", [40, 70])
+def test_k1_several_word_groups(dev, P):
+    """[2, H, W] and [3, H, W] words (a batch's internal Canny packs 8
+    planes per image, 128 planes at B = 16): staircases in some planes,
+    random candidates in the others, and a last group only partly used."""
+    rng = np.random.default_rng(P)
+    cand = rng.random((P, 70, 90)) < 0.45
+    strong = cand & (rng.random(cand.shape) < 0.01)
+    for p in range(0, P, 7):
+        strong[p], cand[p] = staircase_plane(rng, 70, 90)
+    sweeps = _k1_case(dev, strong, cand, 256)
+    assert sweeps > 3
 
 
 def test_k1_past_the_old_line_cap(dev):
@@ -182,3 +197,61 @@ def test_detect_board_cuda_equals_cpu(dev, max_r):
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
         assert x.dtype == y.dtype and torch.equal(x, y), f.name
+
+
+def _two_image_pool(dev):
+    """The plane state of two diagrams of mixed sizes in one 192 canvas
+    (margins 0 and 2): 16 planes with per-plane content dims."""
+    imgs = [_diagram(192), _diagram(190, n=7)]
+    can = np.zeros((2, 192, 192, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        can[i, :im.shape[0], :im.shape[1]] = im
+    cfg = DetectionConfig()
+    hw = (torch.tensor([192, 190], device=dev), torch.tensor([192, 190], device=dev))
+    _, _, v = pipeline_detect._pre_circles(torch.from_numpy(can).to(dev), cfg, hw)
+    keep, _ = pipeline_detect._variant_dedup(cfg, v.shape[1])
+    planes = v[:, keep].reshape(-1, 192, 192)
+    st = pipeline_detect._plane_state_pool(
+        planes, cfg, tuple(t.repeat_interleave(len(keep)) for t in hw))
+    return cfg, can, st
+
+
+def test_k2_k3_on_a_two_image_pool(dev):
+    """K2 at the proposals and ring cells and K3 at the compacted peaks of
+    a pool holding both images' planes, against their plain versions."""
+    from img2sgf_tpu_torch.hough.circles import propose_from_acc
+
+    cfg, _, st = _two_image_pool(dev)
+    hw = (st["hs"], st["ws"])
+    ys, xs, valid, _ = propose_from_acc(
+        st["acc"], cfg.circle_acc_threshold, cfg.max_center_candidates,
+        threshold_factor=cfg.propose_threshold_factor, hw=hw)
+    args = (st["emask"], st["sx"], st["sy"], ys, xs, valid,
+            cfg.circle_min_radius, cfg.circle_max_radius)
+    for cells in (5, 3):
+        got = rescore_cuda.exact_rescore(*args, cells=cells)
+        assert torch.equal(got, rescore_cuda.exact_rescore_plain(*args, cells=cells))
+    ys_c, xs_c, want, _ = pipeline_detect._select_candidates(
+        st, cfg, margin_filter=True)
+    assert int(want[:8].sum()) > 0 and int(want[8:].sum()) > 0
+    k3 = (st["emask"], ys_c, xs_c, want, cfg.circle_min_radius,
+          cfg.circle_max_radius)
+    got = radius_cuda.radius_support_pool(*k3)
+    plain = radius_cuda.radius_support_pool_plain(*k3)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+def test_detect_board_bucket_batch_cuda_equals_cpu(dev):
+    """Two images of mixed sizes in one canvas: every field of the CUDA
+    batch equals the CPU batch, with 2 K1, 2 K2 and 1 K3 launches."""
+    cfg, can, _ = _two_image_pool(dev)
+    hs = ws = [192, 190]
+    counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
+    before = [m.launches for m in counters]
+    a = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
+    assert [m.launches - b for m, b in zip(counters, before)] == [2, 2, 1]
+    b = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device="cpu")
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
+        assert x.dtype == y.dtype and torch.equal(x, y), f.name
+    assert bool(b.board_ready.all())

@@ -109,7 +109,7 @@ def test_detect_board_overflow_rerun_every_field():
     cfg = from_jax_config(dataclasses.asdict(OVERFLOW))
     from img2sgf_tpu_torch.pipeline.detect import (
         _circles_from_state, _plane_state_pool, _pre_circles, _variant_dedup)
-    _, _, v = _pre_circles(torch.from_numpy(rgb), cfg)
+    v = _pre_circles(torch.from_numpy(rgb)[None], cfg)[2][0]
     keep, _ = _variant_dedup(cfg, v.shape[0])
     _, _, sat = _circles_from_state(_plane_state_pool(v[keep], cfg), cfg,
                                     margin_filter=True)

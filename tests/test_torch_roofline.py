@@ -1,0 +1,77 @@
+"""chip_smoke.py's roofline work counts (k2_walk_steps, k2_bytes, k3_work)
+against brute-force loops over small seeded inputs: each kernel's bound
+counts only the pixels and steps its inputs need."""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import k2_bytes, k2_walk_steps, k3_work
+from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+
+T = torch.from_numpy
+
+
+def _inputs(seed, dtype=np.int64, P=3, H=23, W=29, K=6):
+    """Edge planes [P, H, W] and K centres per plane (some at the border),
+    with a mask of the slots in use."""
+    rng = np.random.default_rng(seed)
+    emask = rng.random((P, H, W)) < 0.3
+    ys = rng.integers(0, H, (P, K)).astype(dtype)
+    xs = rng.integers(0, W, (P, K)).astype(dtype)
+    ys[0, 0], xs[0, 0] = 0, W - 1
+    used = rng.random((P, K)) < 0.6
+    used[0, 0] = True
+    return emask, ys, xs, used
+
+
+def _slots(used):
+    return [(p, k) for p in range(used.shape[0]) for k in range(used.shape[1])
+            if used[p, k]]
+
+
+@pytest.mark.parametrize("cells", [3, 5])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_counts(cells, seed):
+    emask, ys, xs, valid = _inputs(seed)
+    P, H, W = emask.shape
+    max_r, reach = 4, cells // 2
+    kmax = rescore_cuda._geometry(1, max_r, cells)[6]
+    ext = max_r + reach + 2
+    covered = np.zeros_like(emask)
+    edges = 0
+    for p, k in _slots(valid):
+        y, x = int(ys[p, k]), int(xs[p, k])
+        for h in (ext, 2 * reach):
+            edges += emask[p, max(y - h, 0):y + h + 1, max(x - h, 0):x + h + 1].sum()
+        covered[p, max(y - ext, 0):y + ext + 1, max(x - ext, 0):x + ext + 1] = True
+    assert k2_walk_steps(T(emask), T(ys), T(xs), T(valid), max_r, cells) \
+        == edges * (2 * kmax + 1)
+    want = (covered.sum() + 8 * (covered & emask).sum() + 9 * ys.size
+            + 4 * P * ys.shape[1] * cells * cells)
+    assert k2_bytes(T(emask), T(ys), T(xs), T(valid), max_r, cells) == want
+    assert covered.sum() < emask.size  # the windows leave pixels unread
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_work(dtype, seed):
+    emask, ys, xs, want = _inputs(seed, dtype)
+    P, H, W = emask.shape
+    min_r, max_r = 2, 5
+    bmap, win, _ = radius_cuda._bin_map(min_r, max_r)
+    offsets = [(i // win - max_r, i % win - max_r)
+               for i in np.flatnonzero(bmap >= 0)]
+    covered = np.zeros_like(emask)
+    n_in = n_edge = 0
+    for p, k in _slots(want):
+        for dy, dx in offsets:
+            y, x = int(ys[p, k]) + dy, int(xs[p, k]) + dx
+            if 0 <= y < H and 0 <= x < W:
+                covered[p, y, x] = True
+                n_in += 1
+                n_edge += int(emask[p, y, x])
+    nbytes = (covered.sum() + 2 * ys.itemsize * want.sum() + 9 * want.size
+              + 4 * win * win + 16 * win)
+    assert k3_work(T(emask), T(ys), T(xs), T(want), min_r, max_r) == \
+        (nbytes, n_in + 2 * n_edge)
