@@ -33,18 +33,36 @@ Phases, each printing one line or a few:
      Phase 2 also holds each kernel at the batch's own inputs (recorded
      from one batch run: K1 at [1,768,768] and [4,768,768] words, K2 and K3
      over the 128-plane pool) against its plain version;
+  5b. the editing session (DetectSession) on the 768^2 diagram: an action
+     script (process, alignment, a stone cycled, a black-threshold change
+     and reclassify, a zoom onto a corner that re-detects in the 512
+     bucket, a 2-degree rotation, zoom out) on the card and on the CPU, with
+     the same log, board, side to move and SGF after every action; the
+     launches of one process(), none for reclassify, and the warm wall
+     time of each action;
+  5c. the batch loader: the 16 batch diagrams as JPEGs through decode_batch
+     (the native libjpeg loader where its headers exist), close to PIL,
+     and its decode time;
+  5d. data parallelism: make_sharded_detector on [cuda:0] (32 512^2) and on
+     [cuda:0, cuda:0] (the 16-image bucket batch, K1-K3 called from both
+     worker threads) equal to the one-device batches in every field,
+     feed_and_detect over the JPEGs equal to detect_board_auto of each
+     decoded image, and warm img/s of each beside its one-device batch;
   6. every kernel launched by each path's counted run (detect_board,
-     detect_board_bucket_batch, detect_board_batch; counts set to 0 just
-     before each and read just after);
-  7. torch.profiler over each kernel's main-path call and its batch cases
-     (K3: each of its cases): its launches and device reads per call (K1
-     must be one kernel launch and one device read, K3 one launch and no
-     device read) and its device time;
+     detect_board_bucket_batch, detect_board_batch, DetectSession.process,
+     the sharded detectors, feed_and_detect; counts set to 0 just before
+     each and read just after), and no plain version called on the card;
+  7. torch.profiler over each kernel's main-path call, the single image's
+     other cases (K1's outer Canny, K2's 3x3 case and both K2 cases at
+     max_r 60) and its batch cases (K3: each of its cases): its launches
+     and device reads per call (K1 must be one kernel launch and one device
+     read, K3 one launch and no device read) and its device time;
   8. the device busy share of one warm 16-image batch (profiler), then
      K1's main-path profile once more (logged only).
 
 Then one JSON line with each kernel's launches (by path), error, times and
-bound, one with the batch throughputs, the card's name and power limit,
+bound, one with the batch throughputs (the sharded ones included), one with
+the session's and the loader's numbers, the card's name and power limit,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -177,8 +195,10 @@ def bucket(imgs):
 def recording():
     """Record the arguments of every K1, K2 and K3 wrapper call made through
     the pipeline's own references to them: yields {"K1": [(args, kwargs)],
-    "K2": [...], "K3": [...]}."""
+    "K2": [...], "K3": [...], "threads": {"K1": {idents}, ...}}, "threads"
+    holding the idents of the threads that made each kernel's calls."""
     import importlib
+    import threading
 
     # the packages re-export functions under some module names (ops.canny)
     mod = importlib.import_module
@@ -187,10 +207,12 @@ def recording():
                (mod("img2sgf_tpu_torch.pipeline.detect"), "radius_support_pool",
                 "K3")]
     calls = {k: [] for _, _, k in targets}
+    threads = calls["threads"] = {k: set() for _, _, k in targets}
     saved = [(m, name, getattr(m, name)) for m, name, _ in targets]
     for (m, name, key), (_, _, orig) in zip(targets, saved):
         def rec(*a, _orig=orig, _key=key, **kw):
             calls[_key].append((a, kw))
+            threads[_key].add(threading.get_ident())
             return _orig(*a, **kw)
         setattr(m, name, rec)
     try:
@@ -360,7 +382,7 @@ def main_path_calls(dev, rgb, cfg):
         detect_board(rgb, cfg, choose_line_threshold(*rgb.shape[:2]), device=dev)
     if [len(calls[k]) for k in ("K1", "K2", "K3")] != [2, 2, 1]:
         raise AssertionError("the 768^2 main path's kernel calls: "
-                             f"{ {k: len(v) for k, v in calls.items()} }")
+                             f"{ {k: len(calls[k]) for k in ('K1', 'K2', 'K3')} }")
     return calls
 
 
@@ -415,16 +437,16 @@ def batch_kernel_cases(dev, cfg, batch, rate):
         detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
     if [len(calls[k]) for k in ("K1", "K2", "K3")] not in ([2, 2, 1], [2, 4, 2]):
         raise AssertionError("the batch's kernel calls: "
-                             f"{ {k: len(v) for k, v in calls.items()} }")
+                             f"{ {k: len(calls[k]) for k in ('K1', 'K2', 'K3')} }")
     out = {"K1": [], "K2": [], "K3": []}
     for name, ((e0, g, iters), _) in zip(("outer", "internal"), calls["K1"]):
         label = (f"batch {name} canny [" + ",".join(map(str, e0.shape)) + "]")
         out_k = hyst.hysteresis_packed(e0, g, iters)
-        sweeps = hyst.last_sweeps
+        sweeps = hyst.last_sweeps()
         out_p = hyst.hysteresis_packed_plain(e0, g, iters)
-        if sweeps != hyst.last_sweeps:
+        if sweeps != hyst.last_sweeps():
             raise AssertionError(f"K1 {label}: {sweeps} sweeps, the plain "
-                                 f"loop ran {hyst.last_sweeps}")
+                                 f"loop ran {hyst.last_sweeps()}")
         err = check_equal(f"K1 {label}", out_k, out_p)
         ms = cuda_ms(lambda: hyst.hysteresis_packed(e0, g, iters), 5)
         pms = cuda_ms(lambda: hyst.hysteresis_packed_plain(e0, g, iters), 1)
@@ -500,9 +522,9 @@ def phase_kernels(dev, rgb, cfg, batch):
     for label, e0, g, iters in cases:
         shape = "[" + ",".join(map(str, e0.shape)) + "]"
         out_k = hyst.hysteresis_packed(e0, g, iters)
-        sweeps = hyst.last_sweeps
+        sweeps = hyst.last_sweeps()
         out_p = hyst.hysteresis_packed_plain(e0, g, iters)
-        plain_sweeps = hyst.last_sweeps
+        plain_sweeps = hyst.last_sweeps()
         if sweeps != plain_sweeps:
             raise AssertionError(f"K1 {label} {shape}: {sweeps} sweeps, the "
                                  f"plain loop ran {plain_sweeps}")
@@ -555,7 +577,9 @@ def phase_kernels(dev, rgb, cfg, batch):
             nbytes = k2_bytes(emask, ys, xs, valid, max_r, cells)
             b_ms, b_by = roofline(nbytes, K2_OPS_PER_STEP * steps, rate)
             k2.append(dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                           bound_by=b_by))
+                           bound_by=b_by, valid=int(valid.sum()),
+                           call=lambda a=args, c=cells:
+                               rescore_cuda.exact_rescore(*a, cells=c)))
             log("kernels", f"K2 rescore {label} valid={int(valid.sum())}: "
                 f"equal, kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}: {steps} walk steps, "
@@ -607,12 +631,17 @@ def phase_kernels(dev, rgb, cfg, batch):
                          bound_ms=k3[0]["bound_ms"], bound_by=k3[0]["bound_by"],
                          cases=k3)
 
-    # --- the batch path's own inputs; the single-image main case stays first
+    # --- the batch path's own inputs; the single-image main case stays
+    # first, then the single image's other cases that phase 7 profiles (the
+    # outer Canny, K2's 3x3 patches and both at max_r 60)
     batched = batch_kernel_cases(dev, cfg, batch, rate)
+    outer = dict(k1[0], call=lambda: hyst.hysteresis_packed(*cases[0][1:]))
     results["K1"]["cases"] = [dict(label="internal canny (main path)",
-                                   call=results["K1"]["call"])] + batched["K1"]
+                                   call=results["K1"]["call"]),
+                              outer] + batched["K1"]
     results["K2"]["cases"] = [dict(label="cells=5 (main path)",
-                                   call=results["K2"]["call"])] + batched["K2"]
+                                   call=results["K2"]["call"])] \
+        + k2[1:] + batched["K2"]
     results["K3"]["cases"] += batched["K3"]
     for k in results:
         results[k]["err"] = max([results[k]["err"]]
@@ -732,9 +761,12 @@ def phase_main_path(dev, rgb, stones, cfg):
     # the counted main-path run
     for m in counters:
         m.launches = 0
+        m.plain_calls = 0
     res = detect_board(rgb, cfg, thr, device=dev)
     torch.cuda.synchronize()
     launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in counters}
+    if any(m.plain_calls for m in counters):
+        raise AssertionError("the main path called a plain version on the card")
 
     if not bool(res.board_ready):
         raise AssertionError("board not ready on the synthetic diagram")
@@ -865,8 +897,9 @@ COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
 
 @contextlib.contextmanager
 def counted(out: dict):
-    """Set every kernel's launch count to 0, run the body, then store the
-    counts (by kernel) in out."""
+    """Set every kernel's launch count (and plain-version call count) to 0,
+    run the body, then store the launch counts (by kernel) in out. A path on
+    the card that called a plain version fails."""
     import torch
 
     from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
@@ -875,9 +908,13 @@ def counted(out: dict):
     mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda}
     for m in mods.values():
         m.launches = 0
+        m.plain_calls = 0
     yield
     torch.cuda.synchronize()
     out.update({k: m.launches for k, m in mods.items()})
+    plain = {k: m.plain_calls for k, m in mods.items() if m.plain_calls}
+    if plain:
+        raise AssertionError(f"plain versions called on the card: {plain}")
 
 
 def check_batch_launches(launches, label):
@@ -1133,6 +1170,286 @@ def phase_batch(dev, cfg, batch):
             f"{t['wall_ms']:.1f} ms, median); stages (summed over the loop "
             f"for detect_board) " + ", ".join(f"{k} {v:.1f} ms"
                                               for k, v in t["stage_ms"].items()))
+    return paths, tput, (sbatch, sths)
+
+
+# The editing session's action script (phase 5b): what a GUI user does to
+# the 768^2 diagram. The zoom drags over the top-left 420 px of a canvas
+# showing the image at scale 1, so the crop re-detects in the 512 bucket.
+SESSION_ACTIONS = ("process", "set_alignment", "cycle_stone", "reclassify",
+                   "select_region", "rotate", "zoom_out")
+ZOOM = ([0, 0, 420, 420], (SIZE, SIZE))
+ALTERED_BLACK_THRESHOLD = 60
+
+
+def session_script(session, rgb, lines):
+    """Run the action script on a DetectSession whose log appends to
+    `lines`; after each action: its name, its wall seconds, the log so far,
+    the full board, side to move and SGF text."""
+    from img2sgf_tpu_torch.core import Alignment
+
+    def reclassify():
+        session.black_stone_threshold = ALTERED_BLACK_THRESHOLD
+        session.reclassify()
+
+    def rotate():
+        session.rotate_deg = 2
+        session.process()
+
+    acts = {
+        "process": lambda: (session.load_image(rgb), session.process()),
+        "set_alignment": lambda: session.set_alignment(Alignment.RIGHT,
+                                                       Alignment.BOTTOM),
+        "cycle_stone": lambda: session.cycle_stone(0, 0, right_click=False),
+        "reclassify": reclassify,
+        "select_region": lambda: session.select_region(*ZOOM),
+        "rotate": rotate,
+        "zoom_out": session.zoom_out,
+    }
+    steps = []
+    for name in SESSION_ACTIONS:
+        t0 = time.perf_counter()
+        acts[name]()
+        dt = time.perf_counter() - t0
+        fb = session.full_board
+        steps.append(dict(action=name, seconds=dt, log=list(lines),
+                          board=None if fb is None else fb.copy(),
+                          side=int(session.side_to_move),
+                          sgf=None if fb is None else session.sgf_text(),
+                          ready=session.board_ready))
+    return steps
+
+
+def phase_session(dev, rgb, cfg):
+    """Phase 5b: the editing session (DetectSession) on the card. The action
+    script on device="cuda" and on device="cpu" gives, after every action,
+    the same log lines, full board, side to move and SGF; one process() is
+    counted (2 K1, 2 K2, 1 K3 as any batch of one) and reclassify launches
+    nothing; then the warm wall time of each action, median of 3 scripts."""
+    import torch
+
+    from img2sgf_tpu_torch.gui.session import DetectSession
+
+    glines, clines = [], []
+    gses = DetectSession(cfg, log=glines.append, device=dev)
+    g = session_script(gses, rgb, glines)
+    t0 = time.perf_counter()
+    c = session_script(DetectSession(cfg, log=clines.append, device="cpu"),
+                       rgb, clines)
+    cpu_s = time.perf_counter() - t0
+    for a, b in zip(g, c):
+        same_board = (a["board"] is None and b["board"] is None) or (
+            a["board"] is not None and b["board"] is not None
+            and np.array_equal(a["board"], b["board"]))
+        for what, ok in (("log", a["log"] == b["log"]), ("full_board", same_board),
+                         ("side_to_move", a["side"] == b["side"]),
+                         ("sgf_text", a["sgf"] == b["sgf"])):
+            if not ok:
+                raise AssertionError(f"session after {a['action']}: {what} "
+                                     "differs between CUDA and CPU")
+    log("session", "action script " + " -> ".join(
+        f"{s['action']} ({'board' if s['ready'] else 'no board'})" for s in g)
+        + f": log ({len(glines)} lines), full board, side to move and SGF "
+        f"equal to the CPU session's after every action (CPU script {cpu_s:.1f} s)")
+
+    launches, recl = {}, {}
+    with counted(launches):
+        gses.load_image(rgb)
+        gses.process()
+    check_batch_launches(launches, "DetectSession.process")
+    with counted(recl):
+        gses.black_stone_threshold = ALTERED_BLACK_THRESHOLD
+        gses.reclassify()
+    if any(recl.values()):
+        raise AssertionError(f"reclassify launched kernels: {recl}")
+
+    # each script in turn with one detect_board_auto of the diagram, the
+    # pipeline call that process() makes
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.pipeline import detect_board_auto
+
+    thr = choose_line_threshold(*rgb.shape[:2])
+    times = {a: [] for a in SESSION_ACTIONS + ("detect_board_auto",)}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        detect_board_auto(rgb, cfg, thr, device=dev)
+        torch.cuda.synchronize()
+        times["detect_board_auto"].append(time.perf_counter() - t0)
+        glines.clear()
+        for s in session_script(gses, rgb, glines):
+            times[s["action"]].append(s["seconds"])
+    action_ms = {a: statistics.median(v) * 1e3 for a, v in times.items()}
+    log("session", f"one process(): launches {launches}; reclassify: none; warm "
+        "wall per action (median of 3 scripts; detect_board_auto of the "
+        "diagram in turn with them): " + ", ".join(
+            f"{a} {ms:.2f} ms" for a, ms in action_ms.items()))
+    return {f"DetectSession.process {SIZE}": launches}, dict(
+        action_ms=action_ms, process_launches=launches)
+
+
+def phase_loader(batch, tmp):
+    """Phase 5c: the batch's 16 diagrams written as JPEG (quality 95) into
+    tmp and decoded by decode_batch at 768x768: which decoder ran (the
+    native one must build where libjpeg's headers exist), each image close
+    to PIL's decode and resize (mean |diff| < 4, the JAX package's bound),
+    and the decode time of the 16. Returns (the JPEG paths, numbers)."""
+    from PIL import Image
+
+    from img2sgf_tpu_torch.hostio import batch_loader
+
+    paths = []
+    for i, (im, _) in enumerate(batch):
+        paths.append(os.path.join(tmp, f"b{i:02d}.jpg"))
+        Image.fromarray(im).save(paths[-1], quality=95)
+    headers = any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                  for d in ("/usr/include", "/usr/local/include"))
+    native = batch_loader.native_available()
+    if headers and not native:
+        raise AssertionError("the native loader did not build where libjpeg's "
+                             f"headers exist: {batch_loader.build_error}")
+    out = batch_loader.decode_batch(paths, SIZE, SIZE)
+    diffs = []
+    for i, p in enumerate(paths):
+        with Image.open(p) as im:
+            ref = np.asarray(im.convert("RGB").resize((SIZE, SIZE), Image.BILINEAR))
+        diffs.append(float(np.abs(out[i].astype(np.int32) - ref).mean()))
+    if max(diffs) >= 4.0:
+        raise AssertionError(f"decode_batch differs from PIL: mean |diff| {diffs}")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batch_loader.decode_batch(paths, SIZE, SIZE, out=out)
+        walls.append(time.perf_counter() - t0)
+    decode_ms = statistics.median(walls) * 1e3
+    log("loader", f"decode_batch of {len(paths)} JPEGs to {SIZE}x{SIZE}: "
+        f"{'native (libjpeg, ' + str(os.cpu_count()) + ' cores)' if native else 'PIL'}"
+        f"{'' if native else ' (native loader: ' + str(batch_loader.build_error).splitlines()[-1][:200] + ')'}"
+        f"{'' if headers else '; libjpeg headers absent'}; mean |diff| against "
+        f"PIL at most {max(diffs):.3f}; {decode_ms:.1f} ms (median of 5)")
+    return paths, dict(native=native, decode_ms=decode_ms, images=len(paths),
+                       max_mean_abs_diff_vs_pil=max(diffs))
+
+
+def interleaved_img_s(fns: dict, n_images: int, reps: int = 3):
+    """Warm img/s of each fn() (median of reps host walls ending in a
+    device sync), the fns run in turns within each rep after one warm-up."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    walls = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    return {k: dict(img_per_s=n_images / statistics.median(v),
+                    wall_ms=statistics.median(v) * 1e3) for k, v in walls.items()}
+
+
+def phase_sharded(dev, cfg, batch, small, jpegs):
+    """Phase 5d: the data-parallel detector and feed on the card.
+    make_sharded_detector([cuda:0]) on the 32 512^2 diagrams equals
+    detect_board_batch in every field; make_sharded_detector([cuda:0,
+    cuda:0], bucketed=True) on the 16 diagrams of the 768 bucket equals
+    detect_board_bucket_batch in every field, with K1-K3 called from both
+    worker threads; feed_and_detect over the 16 JPEGs on [cuda:0] gives
+    rows equal to detect_board_auto of each decoded image. Each run
+    counted; then warm img/s of each next to its one-device batch."""
+    import torch
+
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.hostio.batch_loader import decode_batch
+    from img2sgf_tpu_torch.parallel import (
+        aggregate_metrics, feed_and_detect, make_sharded_detector)
+    from img2sgf_tpu_torch.pipeline import (
+        detect_board_auto, detect_board_batch, detect_board_bucket_batch)
+
+    paths = {}
+    sbatch, sths = small
+    one = make_sharded_detector([dev], cfg)
+    launches = {}
+    with counted(launches):
+        res = one(sbatch, sths)
+    check_batch_launches(launches, "sharded [cuda:0]")
+    compare_results(res, detect_board_batch(sbatch, cfg, sths, device=dev),
+                    "make_sharded_detector([cuda:0]) vs detect_board_batch")
+    paths[f"make_sharded_detector [cuda:0] B={len(sths)} {SMALL}"] = launches
+    agg = {k: int(v) for k, v in aggregate_metrics(res).items()}
+    log("sharded", f"make_sharded_detector([cuda:0]) on {len(sths)} x {SMALL}^2: "
+        f"equal to detect_board_batch in every field; launches {launches}; {agg}")
+
+    imgs = [im for im, _ in batch]
+    canvases, hs, ws, ths = bucket(imgs)
+    two = make_sharded_detector([dev, dev], cfg, bucketed=True)
+    launches = {}
+    with counted(launches), recording() as calls:
+        res = two(canvases, ths, hs, ws)
+    threads = calls["threads"]
+    if launches["K1"] != 4 or launches["K3"] not in (2, 3, 4) \
+            or launches["K2"] != 2 * launches["K3"]:
+        raise AssertionError(f"two shards' launches {launches}, expected K1 4, "
+                             "K2 4 and K3 2 (plus 2 and 1 a shard with a rerun)")
+    if any(len(t) != 2 for t in threads.values()):
+        raise AssertionError("K1-K3 not called from both worker threads: "
+                             f"{ {k: len(t) for k, t in threads.items()} }")
+    compare_results(res, detect_board_bucket_batch(canvases, cfg, ths, hs, ws,
+                                                   device=dev),
+                    "make_sharded_detector([cuda:0, cuda:0]) vs bucket batch")
+    paths[f"make_sharded_detector [cuda:0, cuda:0] bucketed B={len(imgs)} "
+          f"{canvases.shape[1]}"] = launches
+    log("sharded", f"make_sharded_detector([cuda:0, cuda:0], bucketed) on "
+        f"{len(imgs)} images of the {canvases.shape[1]} bucket: equal to "
+        f"detect_board_bucket_batch in every field; launches {launches}, "
+        "K1-K3 each called from both worker threads (two streams; K1's "
+        "cooperative launches take turns)")
+
+    feed = make_sharded_detector([dev], cfg)
+    launches = {}
+    with counted(launches):
+        res = feed_and_detect([dev], feed, jpegs, SIZE, SIZE)
+    check_batch_launches(launches, "feed_and_detect")
+    decoded = decode_batch(jpegs, SIZE, SIZE)
+    thr = choose_line_threshold(SIZE, SIZE)
+    for i, im in enumerate(decoded):
+        single = detect_board_auto(im, cfg, thr, device=dev)
+        for f in dataclasses.fields(single):
+            if not torch.equal(getattr(res, f.name)[i], getattr(single, f.name)):
+                raise AssertionError(f"feed_and_detect row {i} differs from "
+                                     f"detect_board_auto in {f.name}")
+    paths[f"feed_and_detect [cuda:0] {len(jpegs)} {SIZE}"] = launches
+    log("sharded", f"feed_and_detect([cuda:0]) over {len(jpegs)} JPEGs at "
+        f"{SIZE}x{SIZE}: each row equal to detect_board_auto of its decoded "
+        f"image; launches {launches}; "
+        f"{int(res.board_ready.sum())} boards ready")
+
+    thrs = [thr] * len(jpegs)
+    tput = {}
+    for name, t in {
+        **interleaved_img_s({
+            f"detect_board_batch_{SMALL}_B{len(sths)}":
+                lambda: detect_board_batch(sbatch, cfg, sths, device=dev),
+            f"sharded_cuda0_{SMALL}_B{len(sths)}": lambda: one(sbatch, sths)},
+            len(sths)),
+        **interleaved_img_s({
+            f"detect_board_bucket_batch_{canvases.shape[1]}_B{len(imgs)}":
+                lambda: detect_board_bucket_batch(canvases, cfg, ths, hs, ws,
+                                                  device=dev),
+            f"sharded_cuda0_cuda0_bucketed_{canvases.shape[1]}_B{len(imgs)}":
+                lambda: two(canvases, ths, hs, ws)}, len(imgs)),
+        **interleaved_img_s({
+            f"decode_and_detect_board_batch_{SIZE}_B{len(jpegs)}":
+                lambda: detect_board_batch(decode_batch(jpegs, SIZE, SIZE), cfg,
+                                           thrs, device=dev),
+            f"feed_and_detect_cuda0_{SIZE}_B{len(jpegs)}":
+                lambda: feed_and_detect([dev], feed, jpegs, SIZE, SIZE)},
+            len(jpegs)),
+    }.items():
+        tput[name] = t
+        log("sharded", f"{name}: {t['img_per_s']:.2f} img/s warm (wall "
+            f"{t['wall_ms']:.1f} ms, median of 3, in turns with its pair)")
     return paths, tput
 
 
@@ -1166,7 +1483,14 @@ def main() -> int:
     phase_tables(dev)
     launches, _wall, _stages = phase_main_path(dev, rgb, stones, cfg)
     rerun_ms = phase_overflow(dev, cfg)
-    paths, tput = phase_batch(dev, cfg, batch)
+    paths, tput, small = phase_batch(dev, cfg, batch)
+    session_paths, session = phase_session(dev, rgb, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpegs, loader = phase_loader(batch, tmp)
+        sharded_paths, sharded_tput = phase_sharded(dev, cfg, batch, small, jpegs)
+    paths.update(session_paths)
+    paths.update(sharded_paths)
+    tput.update(sharded_tput)
     phase_profile(kernels)  # late: the profiler's hooks could slow the wall
     tput[f"bucket_batch_{SIZE}_B{len(batch)}"].update(phase_busy(dev, cfg, batch))
     # K1's profile once more, after the busy profile's ~17,600 events, for
@@ -1221,6 +1545,7 @@ def main() -> int:
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"throughput": tput}))
+    print(json.dumps({"session": session, "loader": loader}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

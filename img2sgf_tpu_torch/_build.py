@@ -49,6 +49,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any
+# Held while a wrapper adds to its module's launch or plain-call count, so
+# that threads launching at once (the sharded detector's workers) lose none.
+count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -68,13 +71,39 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def cached_path(stem: str, key: bytes) -> pathlib.Path:
+    """BUILD_DIR/<stem>_<hash of key>.so: key holds the sources and flags
+    that the library is built from."""
+    return BUILD_DIR / f"{stem}_{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def build_once(path: pathlib.Path, command) -> float | None:
+    """Build the shared library `path` unless it exists. command() gives the
+    compiler's command line, to which "-o <file>" is appended; it may raise
+    RuntimeError (no compiler). Returns the compile's wall seconds, or None
+    when the library was there; raises RuntimeError when the compiler
+    fails."""
+    if path.exists():
+        return None
+    cmd = command()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [*cmd, "-o", tmp]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed:\n"
+                           + " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    seconds = time.perf_counter() - t0
+    os.replace(tmp, path)  # atomic: concurrent builders agree
+    return seconds
+
+
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256()
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libimg2sgf_kernels_{h.hexdigest()[:16]}.so"
+    key = b"".join(src.name.encode() + src.read_bytes() for src in _sources())
+    return cached_path("libimg2sgf_kernels", key + " ".join(NVCC_FLAGS).encode())
 
 
 def load() -> ctypes.CDLL:
@@ -84,20 +113,10 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         path = library_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout
-                    + proc.stderr)
-            build_seconds = time.perf_counter() - t0
-            os.replace(tmp, path)  # atomic: concurrent builders agree
+        seconds = build_once(
+            path, lambda: [_nvcc(), *NVCC_FLAGS, *map(str, _sources())])
+        if seconds is not None:
+            build_seconds = seconds
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

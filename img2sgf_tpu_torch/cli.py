@@ -1,10 +1,12 @@
-"""Headless CLI: python -m img2sgf_tpu_torch [--fast] [--device cuda|cpu]
+"""CLI: python -m img2sgf_tpu_torch [--fast] [--device cuda|cpu]
 input_image [output.sgf]
 
-Mirrors img2sgf_tpu's run_headless (and the reference's argv semantics,
+Mirrors img2sgf_tpu's CLI (and the reference's argv semantics,
 img2sgf.py:1256-1269): arg1 is the input image, arg2 the output SGF
-(default: input stem + .sgf). The image is detected through the
-shape-bucketed path (detect_board_auto), as the JAX CLI does.
+(default: input stem + .sgf). The image is detected headless through the
+shape-bucketed path (detect_board_auto), as the JAX CLI does. With --gui,
+or with no input image, the Tk editor opens instead (on the input image,
+if one is given).
 
 Batch mode: python -m img2sgf_tpu_torch --batch 'scans/*.jpg' [-o out/]
 [--batch-size N] groups images by canvas bucket and converts each group
@@ -143,10 +145,14 @@ def run_batch(inputs, outdir: str | None, batch_size: int = 16,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m img2sgf_tpu_torch",
-        description="Convert an image of a Go diagram to SGF.")
+        description="Convert an image of a Go diagram to SGF. With no input "
+                    "image, or with --gui, open the editor.")
     parser.add_argument("paths", nargs="*",
                         help="input image and output SGF (default: input "
                              "stem + .sgf); with --batch, input glob patterns")
+    parser.add_argument("--gui", action="store_true",
+                        help="open the Tk editor (on the input image, if "
+                             "given; the output SGF is the save default)")
     parser.add_argument("--batch", action="store_true",
                         help="convert every image the patterns match, "
                              "batched by canvas bucket")
@@ -163,12 +169,15 @@ def main(argv=None) -> int:
     if args.batch:
         return run_batch(args.paths, args.outdir, batch_size=args.batch_size,
                          fast=args.fast, device=args.device)
-    if not args.paths:
-        parser.error("an input image is required (the GUI is not ported)")
     if len(args.paths) > 2:
         sys.exit("Too many command line arguments.")
+    input_path = args.paths[0] if args.paths else None
     output = args.paths[1] if len(args.paths) > 1 else None
-    return run_headless(args.paths[0], output, fast=args.fast,
+    if args.gui or input_path is None:
+        from .gui.app import run_gui
+
+        return run_gui(input_path, output, device=args.device)
+    return run_headless(input_path, output, fast=args.fast,
                         device=args.device)
 
 

@@ -1,3 +1,3 @@
-from .image import load_rgb
+from .image import crop_and_rotate, load_rgb, screen_capture
 
-__all__ = ["load_rgb"]
+__all__ = ["crop_and_rotate", "load_rgb", "screen_capture"]

@@ -54,7 +54,9 @@ def _angle_tables(H: int, W: int, angle: float):
 
 @functools.lru_cache(maxsize=64)
 def _vote_bins(H: int, W: int, angle: float, device: str):
-    """[H*W] vote bin of every pixel in image layout, on `device`."""
+    """[H*W] vote bin of every pixel in image layout, on `device`:
+    str(tensor.device), which names the card ("cuda:1"), so each card
+    keeps its own entry."""
     transpose, flip, kmat, _K, lo, hi, numrho = _angle_tables(H, W, angle)
     base = np.repeat(np.arange(numrho), hi - lo)  # base[t] from its run
     assert base.shape[0] == kmat.shape[0], "row bases must ascend"

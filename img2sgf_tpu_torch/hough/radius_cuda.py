@@ -39,7 +39,10 @@ import torch
 
 from .. import _build
 
+# Counts, added to under _build.count_lock: calls that launched K3, and
+# calls of the plain version.
 launches = 0
+plain_calls = 0
 CHUNK = 512  # candidates per step of the plain version
 _RUN_SCALE = float(np.float32(0.05))  # float32 1/(2*10), as XLA folds it
 
@@ -128,6 +131,9 @@ def _hist10_scan(counts, min_r: int):
 def radius_support_pool_plain(emask, ys, xs, want, min_r: int, max_r: int):
     """Plain PyTorch version: window gather + integer histogram + run scan
     for the wanted rows. emask [P, H, W] bool; ys/xs/want [P, K]."""
+    global plain_calls
+    with _build.count_lock:
+        plain_calls += 1
     P, H, W = emask.shape
     K = ys.shape[1]
     dev = emask.device
@@ -179,7 +185,8 @@ def _row_spans(min_r: int, max_r: int):
 
 @functools.lru_cache(maxsize=8)
 def _tables_on(min_r: int, max_r: int, device: str):
-    """K3's bin map and row spans on the device, uploaded once."""
+    """K3's bin map and row spans on the device, uploaded once per card:
+    `device` is str(tensor.device), which names the card ("cuda:1")."""
     bmap_np, win, nbins = _bin_map(min_r, max_r)
     return (torch.from_numpy(bmap_np).to(device),
             torch.from_numpy(_row_spans(min_r, max_r)).to(device), nbins)
@@ -205,18 +212,21 @@ def radius_support_cuda(emask, ys, xs, want, min_r: int, max_r: int):
     r_out = torch.empty((P, K), dtype=torch.float32, device=emask.device)
     s_out = torch.empty((P, K), dtype=torch.float32, device=emask.device)
     if P and K:
-        err = lib.img2sgf_radius(
-            em.data_ptr(), ys.data_ptr(), xs.data_ptr(), wn.data_ptr(),
-            bmap.data_ptr(), spans.data_ptr(), r_out.data_ptr(),
-            s_out.data_ptr(), P, H, W, K, min_r, max_r, nbins,
-            int(ys.dtype == torch.int64), _build.stream_of(r_out))
+        # the C entry point launches on the thread's current device
+        with torch.cuda.device(r_out.device):
+            err = lib.img2sgf_radius(
+                em.data_ptr(), ys.data_ptr(), xs.data_ptr(), wn.data_ptr(),
+                bmap.data_ptr(), spans.data_ptr(), r_out.data_ptr(),
+                s_out.data_ptr(), P, H, W, K, min_r, max_r, nbins,
+                int(ys.dtype == torch.int64), _build.stream_of(r_out))
         if err == _TOO_MANY_BINS:
             raise ValueError(
                 f"radius range [{min_r}, {max_r}] needs {nbins} histogram "
                 f"bins; one warp's two int32 tables ({8 * nbins} bytes) do "
                 "not fit this card's shared memory per block")
         _build.check(err, "radius kernel")
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return r_out, s_out
 
 

@@ -32,7 +32,10 @@ import torch
 
 from .. import _build
 
+# Counts, added to under _build.count_lock: calls that launched K2, and
+# calls of the plain version.
 launches = 0
+plain_calls = 0
 CHUNK = 256  # candidates per step of the plain version
 
 
@@ -65,6 +68,9 @@ def exact_rescore_plain(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     ys/xs/valid [P, K]. Returns [P, K, cells, cells] f32 counts; rows that
     are not valid are 0 (the JAX XLA path scores them, K2 and the Pallas
     kernel do not)."""
+    global plain_calls
+    with _build.count_lock:
+        plain_calls += 1
     P, H, W = emask.shape
     K = ys.shape[1]
     dev = emask.device
@@ -115,7 +121,8 @@ def exact_rescore_plain(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
 
 @functools.lru_cache(maxsize=16)
 def _rhat_on(min_r: int, max_r: int, cells: int, device: str):
-    """K2's per-offset rhat table [win * win] int32, uploaded once."""
+    """K2's per-offset rhat table [win * win] int32, uploaded once per card:
+    `device` is str(tensor.device), which names the card ("cuda:1")."""
     return torch.from_numpy(_geometry(min_r, max_r, cells)[5]).to(device)
 
 
@@ -135,13 +142,16 @@ def exact_rescore_cuda(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     out = torch.empty((P, K, cells * cells), dtype=torch.float32,
                       device=emask.device)
     if P and K:
-        err = lib.img2sgf_rescore(
-            emask.data_ptr(), sx.data_ptr(), sy.data_ptr(), ys32.data_ptr(),
-            xs32.data_ptr(), nvalid.data_ptr(), rhat.data_ptr(),
-            out.data_ptr(), P, H, W, K, cells, min_r, max_r, kmax,
-            _build.stream_of(out))
+        # the C entry point launches on the thread's current device
+        with torch.cuda.device(out.device):
+            err = lib.img2sgf_rescore(
+                emask.data_ptr(), sx.data_ptr(), sy.data_ptr(),
+                ys32.data_ptr(), xs32.data_ptr(), nvalid.data_ptr(),
+                rhat.data_ptr(), out.data_ptr(), P, H, W, K, cells, min_r,
+                max_r, kmax, _build.stream_of(out))
         _build.check(err, "rescore kernel")
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return out.reshape(P, K, cells, cells)
 
 

@@ -31,14 +31,30 @@ more).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from .. import _build
 from .common import shift2d
 
-launches = 0      # K1 host calls that launched the kernel (each runs all sweeps)
-last_sweeps = 0   # sweeps the last call ran (kernel or plain version)
+# Counts, added to under _build.count_lock: K1 host calls that launched the
+# kernel (each runs all sweeps), and calls of the plain version.
+launches = 0
+plain_calls = 0
+_local = threading.local()
+# One lock per card, held for a whole K1 call (launch to the sweep-count
+# read): each launch sizes its cooperative grid to fill the card, so two at
+# once from two threads could each hold part of it and spin at a grid
+# barrier for blocks the other holds. Calls on one card take turns.
+_card_locks: dict = {}  # card index -> lock; setdefault is atomic
+
+
+def last_sweeps() -> int:
+    """The sweeps that this thread's last call ran (kernel or plain
+    version), kept per thread so that concurrent calls cannot overwrite
+    each other's."""
+    return getattr(_local, "sweeps", 0)
 
 
 def _shift(x, k: int, dim: int):
@@ -75,27 +91,30 @@ def _dilate8_or(x):
 
 def hysteresis_packed_plain(edge0, gate, iters: int):
     """Plain PyTorch sweeps on int32 words [G, H, W]; returns the words."""
-    global last_sweeps
+    global plain_calls
+    with _build.count_lock:
+        plain_calls += 1
     edge = edge0
-    last_sweeps = 0
+    sweeps = 0
     for _ in range(iters):
         new = _seg_fill(edge, gate, -1)
         new = _seg_fill(new, gate, -2)
         new = (_dilate8_or(new) & gate) | new
         changed = bool((new != edge).any())
         edge = new
-        last_sweeps += 1
+        sweeps += 1
         if not changed:
             break
+    _local.sweeps = sweeps
     return edge
 
 
 def hysteresis_packed_cuda(edge0, gate, iters: int):
     """Launch K1 on CUDA int32 words [G, H, W]: one launch and one device
     read per call, whatever the number of sweeps. Returns new words."""
-    global launches, last_sweeps
+    global launches
     if iters <= 0 or edge0.numel() == 0:
-        last_sweeps = 0
+        _local.sweeps = 0
         return edge0.clone()
     lib = _build.load()
     G, H, W = edge0.shape
@@ -104,13 +123,18 @@ def hysteresis_packed_cuda(edge0, gate, iters: int):
     scratch = torch.empty(lib.img2sgf_hysteresis_scratch(G, H, W),
                           dtype=torch.int32, device=edge0.device)
     sweeps = ctypes.c_int(0)
-    err = lib.img2sgf_hysteresis(
-        edge0.data_ptr(), edge.data_ptr(), t.data_ptr(), gate.data_ptr(),
-        scratch.data_ptr(), G, H, W, int(iters), ctypes.addressof(sweeps),
-        _build.stream_of(edge))
+    card_lock = _card_locks.setdefault(edge.device.index, threading.Lock())
+    # the C entry point launches on (and sizes its cooperative grid for)
+    # the thread's current device, which need not be edge's
+    with card_lock, torch.cuda.device(edge.device):
+        err = lib.img2sgf_hysteresis(
+            edge0.data_ptr(), edge.data_ptr(), t.data_ptr(), gate.data_ptr(),
+            scratch.data_ptr(), G, H, W, int(iters), ctypes.addressof(sweeps),
+            _build.stream_of(edge))
     _build.check(err, "hysteresis kernel")
-    launches += 1
-    last_sweeps = sweeps.value
+    with _build.count_lock:
+        launches += 1
+    _local.sweeps = sweeps.value
     return edge
 
 

@@ -257,7 +257,7 @@ def test_k1_decomposition_equals_plain(iters, geometry):
     e0 = tcanny.pack_planes(torch.from_numpy(np.stack([s & c for s, c in planes])))
     gate = tcanny.pack_planes(torch.from_numpy(np.stack([c for _, c in planes])))
     want = hysteresis_cuda.hysteresis_packed_plain(e0, gate, iters)
-    want_sweeps = hysteresis_cuda.last_sweeps
+    want_sweeps = hysteresis_cuda.last_sweeps()
     got, sweeps = k1_emulate(e0.numpy(), gate.numpy(), iters, per_lane, band)
     np.testing.assert_array_equal(got, want.numpy())
     assert sweeps == want_sweeps

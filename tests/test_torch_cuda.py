@@ -37,10 +37,10 @@ def _k1_case(dev, strong, cand, iters):
     before = hysteresis_cuda.launches
     got = hysteresis_cuda.hysteresis_packed(e0, gate, iters)
     assert hysteresis_cuda.launches == before + 1
-    sweeps = hysteresis_cuda.last_sweeps
+    sweeps = hysteresis_cuda.last_sweeps()
     want = hysteresis_cuda.hysteresis_packed_plain(e0, gate, iters)
     assert torch.equal(got, want)
-    assert sweeps == hysteresis_cuda.last_sweeps
+    assert sweeps == hysteresis_cuda.last_sweeps()
     return sweeps
 
 
@@ -255,3 +255,171 @@ def test_detect_board_bucket_batch_cuda_equals_cpu(dev):
         x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
         assert x.dtype == y.dtype and torch.equal(x, y), f.name
     assert bool(b.board_ready.all())
+
+
+def test_k1_k3_from_two_threads(dev):
+    """K1, K2 and K3 launched from two threads at once, each on its own
+    stream of the one card (so K1's two cooperative launches, each sized to
+    fill the card, must take turns): every output equals the plain version,
+    each thread reads its own K1 sweep count, and no launch is lost from the
+    counts."""
+    import threading
+
+    rng = np.random.default_rng(7)
+    pairs = [staircase_plane(rng, 120, 1500) for _ in range(8)]
+    e0 = pack_planes(torch.from_numpy(np.stack([s & c for s, c in pairs])).to(dev))
+    gate = pack_planes(torch.from_numpy(np.stack([c for _, c in pairs])).to(dev))
+    cfg, _, st = _two_image_pool(dev)
+    ys_c, xs_c, want, _ = pipeline_detect._select_candidates(
+        st, cfg, margin_filter=True)
+    k2 = (st["emask"], st["sx"], st["sy"], ys_c, xs_c, want,
+          cfg.circle_min_radius, cfg.circle_max_radius)
+    k3 = (st["emask"], ys_c, xs_c, want, cfg.circle_min_radius,
+          cfg.circle_max_radius)
+    torch.cuda.synchronize(dev)
+    reps, iters = 6, (5, 256)
+    counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
+    before = [m.launches for m in counters]
+    outs = [[] for _ in iters]
+    barrier = threading.Barrier(len(iters))
+
+    def work(k):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            barrier.wait(timeout=60)
+            for _ in range(reps):
+                h = hysteresis_cuda.hysteresis_packed(e0, gate, iters[k])
+                outs[k].append((h, hysteresis_cuda.last_sweeps(),
+                                rescore_cuda.exact_rescore(*k2, cells=3),
+                                radius_cuda.radius_support_pool(*k3)))
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(len(iters))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    n = reps * len(iters)
+    assert [m.launches - b for m, b in zip(counters, before)] == [n, n, n]
+    k2_plain = rescore_cuda.exact_rescore_plain(*k2, cells=3)
+    k3_plain = radius_cuda.radius_support_pool_plain(*k3)
+    for k, it in enumerate(iters):
+        h_plain = hysteresis_cuda.hysteresis_packed_plain(e0, gate, it)
+        sweeps = hysteresis_cuda.last_sweeps()
+        for h, s, r2, r3 in outs[k]:
+            assert torch.equal(h, h_plain) and s == sweeps
+            assert torch.equal(r2, k2_plain)
+            assert torch.equal(r3[0], k3_plain[0]) and torch.equal(r3[1], k3_plain[1])
+    assert outs[0][0][1] == 5 and outs[1][0][1] > 5
+
+
+def test_sharded_detector_two_streams_equals_batch(dev):
+    """make_sharded_detector over [cuda:0, cuda:0] (two worker threads on two
+    streams of one card) in the bucketed mode equals the one-device batch
+    in every field, and launches each kernel from both threads."""
+    from img2sgf_tpu_torch.parallel import make_sharded_detector
+
+    cfg, can, _ = _two_image_pool(dev)
+    hs = ws = [192, 190]
+    want = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
+    counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
+    before = [m.launches for m in counters]
+    got = make_sharded_detector([dev, dev], cfg, bucketed=True)(can, [31, 31], hs, ws)
+    assert [m.launches - b for m, b in zip(counters, before)] == [4, 4, 2]
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert x.device == y.device and torch.equal(x, y), f.name
+
+
+def test_sharded_detector_orders_its_streams(dev, monkeypatch):
+    """The shards' streams wait for the caller's queued work on the images,
+    and the caller reads a shard's results only once they are written: with
+    the caller's stream held back (about half a second) before it writes the
+    images, and each shard's stream held back before it stacks its rows, the
+    two-stream run still equals the one-device batch in every field."""
+    from img2sgf_tpu_torch.parallel import make_sharded_detector, mesh
+
+    cycles = 10**9
+    cfg, can, _ = _two_image_pool(dev)
+    hs = ws = [192, 190]
+    want = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
+    stack = mesh._stack
+
+    def slow_stack(rows):
+        torch.cuda._sleep(cycles)  # on the shard's stream
+        return stack(rows)
+
+    monkeypatch.setattr(mesh, "_stack", slow_stack)
+    run = make_sharded_detector([dev, dev], cfg, bucketed=True)
+    src = torch.from_numpy(can).to(dev)
+    images = torch.full_like(src, 255)
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(cycles)  # on the caller's stream
+    images.copy_(src)
+    got = run(images, [31, 31], hs, ws)
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert x.device == y.device and torch.equal(x, y), f.name
+
+
+def test_device_keyed_tables_name_the_card(dev):
+    """The device-keyed table caches are keyed by str(tensor.device), which
+    names the card's index, so each card keeps its own entry."""
+    assert str(torch.empty(0, device=dev).device) == f"cuda:{dev.index}"
+    assert str(torch.empty(0, device="cuda").device).startswith("cuda:")
+
+
+def _cards(n_min=2):
+    if torch.cuda.device_count() < n_min:
+        pytest.skip(f"needs {n_min} or more cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_kernels_launch_on_the_tensors_card(dev):
+    """K1, K2 and K3 on tensors of the last card, called while the thread's
+    current device is card 0: each launches on its tensors' card and equals
+    its plain version there."""
+    last = _cards()[-1]
+    rng = np.random.default_rng(3)
+    pairs = [staircase_plane(rng, 120, 700) for _ in range(8)]
+    e0 = pack_planes(torch.from_numpy(np.stack([s & c for s, c in pairs])).to(last))
+    gate = pack_planes(torch.from_numpy(np.stack([c for _, c in pairs])).to(last))
+    cfg, _, st = _two_image_pool(last)
+    ys_c, xs_c, want, _ = pipeline_detect._select_candidates(
+        st, cfg, margin_filter=True)
+    k2 = (st["emask"], st["sx"], st["sy"], ys_c, xs_c, want,
+          cfg.circle_min_radius, cfg.circle_max_radius)
+    k3 = (st["emask"], ys_c, xs_c, want, cfg.circle_min_radius,
+          cfg.circle_max_radius)
+    with torch.cuda.device(0):
+        h = hysteresis_cuda.hysteresis_packed(e0, gate, 256)
+        r2 = rescore_cuda.exact_rescore(*k2, cells=5)
+        r3 = radius_cuda.radius_support_pool(*k3)
+    torch.cuda.synchronize(last)
+    assert h.device == r2.device == r3[0].device == last
+    assert torch.equal(h, hysteresis_cuda.hysteresis_packed_plain(e0, gate, 256))
+    assert torch.equal(r2, rescore_cuda.exact_rescore_plain(*k2, cells=5))
+    plain = radius_cuda.radius_support_pool_plain(*k3)
+    assert torch.equal(r3[0], plain[0]) and torch.equal(r3[1], plain[1])
+
+
+def test_sharded_detector_across_cards(dev):
+    """make_sharded_detector over every card (two or more) in the bucketed
+    mode: K1 runs on every card, and the result equals the one-card batch
+    in every field."""
+    from chip_smoke import recording
+    from img2sgf_tpu_torch.parallel import make_sharded_detector
+
+    cards = _cards()
+    cfg, can, _ = _two_image_pool(dev)
+    n = len(cards)
+    can_n = np.concatenate([can] * n)
+    hs = ws = [192, 190] * n
+    ths = [31] * (2 * n)
+    want = detect_board_bucket_batch(can_n, cfg, ths, hs, ws, device=dev)
+    with recording() as calls:
+        got = make_sharded_detector(cards, cfg, bucketed=True)(can_n, ths, hs, ws)
+    assert {a[0].device for a, _ in calls["K1"]} == set(cards)
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert x.device == y.device and torch.equal(x, y), f.name
