@@ -13,13 +13,25 @@ Phases, each printing one line or a few:
      noisy diagram's overflow-rerun inputs), exactly equal, with both times
      and the roofline bound; K1's sweep count equal to the plain loop's;
   3. direction_bins and pixel_steps over all 2041^2 Sobel gradient pairs,
-     CUDA against CPU, exactly equal;
+     CUDA against CPU, exactly equal; direction_bins also at 48, 63, 66,
+     127 and 254 bins;
   4. the main path on a seeded synthetic 19x19 diagram at 768x768: the CLI
      in a subprocess and detect_board in process, every planted stone found
      with its colour, the SGF equal to to_sgf of the in-process result, the
      whole BoardResult bit-equal to the port's CPU run, the warm wall time
      and the per-stage times; then a noisy diagram that takes the overflow
      rerun, CUDA against CPU, and the rerun's own wall time;
+  4c. detect_board under each config value off the default path that the
+     JAX package runs (circle_max_radius 31, the per-offset accumulator;
+     circle_min_radius 0 with max 29, K2 and K3 at r = 0; propose_block 2;
+     num_angle_bins 48 and 63) on the 768^2 diagram: every planted stone
+     found, each kernel launched and no plain version on the card, the warm
+     wall beside the default config's, and CUDA equal to CPU on a 320^2
+     diagram; K2 (cells 5 and 3) and K3 at the r = 0 run's own inputs
+     against their plain versions, with their bounds (JSON rows of their
+     own);
+  4d. hough_circles_gradient (the diagnostic tools' single-plane path) on
+     the 768^2 grey plane, counted, CUDA against CPU;
   5. the batch path: detect_board_bucket_batch on 16 seeded diagrams of
      mixed sizes (648-768 px, an exact fit and margins of 1 and 2 px) in
      the 768 canvas bucket, every planted stone found; each row equal to
@@ -48,20 +60,28 @@ Phases, each printing one line or a few:
      worker threads) equal to the one-device batches in every field,
      feed_and_detect over the JPEGs equal to detect_board_auto of each
      decoded image, and warm img/s of each beside its one-device batch;
-  6. every kernel launched by each path's counted run (detect_board,
+  6. every kernel launched by each path's counted run (detect_board and
+     its config variants, hough_circles_gradient,
      detect_board_bucket_batch, detect_board_batch, DetectSession.process,
      the sharded detectors, feed_and_detect; counts set to 0 just before
      each and read just after), and no plain version called on the card;
   7. torch.profiler over each kernel's main-path call, the single image's
      other cases (K1's outer Canny, K2's 3x3 case and both K2 cases at
-     max_r 60) and its batch cases (K3: each of its cases): its launches
+     max_r 60), its batch cases and the r = 0 cases of K2 and K3 (K3: each
+     of its cases): its launches
      and device reads per call (K1 must be one kernel launch and one device
      read, K3 one launch and no device read) and its device time;
   8. the device busy share of one warm 16-image batch (profiler), then
-     K1's main-path profile once more (logged only).
+     K1's main-path profile once more (logged only);
+  9. the per-offset accumulator (radius span 31) and the cascade (30) on
+     the 768^2 diagram's 8 planes under torch.profiler: wall and device
+     busy time (last: profiles of thousands of launches before phase 7 made
+     its first profile record no device event).
 
 Then one JSON line with each kernel's launches (by path), error, times and
-bound, one with the batch throughputs (the sharded ones included), one with
+bound (K2 and K3 at r = 0 in rows of their own), one with the batch
+throughputs (the sharded ones included), the config variants' walls and the
+accumulators' device times, one with
 the session's and the loader's numbers, the card's name and power limit,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -103,6 +123,8 @@ BATCH = ((768, 100), (767, 101), (766, 102), (760, 116), (752, 104),
 # detect_board_batch: 32 same-size 512^2 diagrams of 13 lines (the 19-line
 # 512^2 diagram is not read correctly by either package)
 SMALL, SMALL_B, SMALL_LINES, SMALL_STONES, SMALL_SEED = 512, 32, 13, 30, 200
+# direction-bin counts checked on all Sobel pairs besides the default 64
+BIN_COUNTS = (48, 63, 66, 127, 254)
 # the fields tests/test_bucketed.py holds bucketed against native detection
 BUCKET_FIELDS = ("full_board", "detected_board", "hsize", "vsize",
                  "board_ready", "valid_grid", "num_black", "num_white",
@@ -428,7 +450,6 @@ def batch_kernel_cases(dev, cfg, batch, rate):
     K2's 5x5 and 3x3 calls over the 128-plane pool, and K3's. Each equal to
     its plain version, with the call's time, the plain version's and the
     bound. Returns {"K1": [case], "K2": [case], "K3": [case]}."""
-    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
     from img2sgf_tpu_torch.ops import hysteresis_cuda as hyst
     from img2sgf_tpu_torch.pipeline import detect_board_bucket_batch
 
@@ -458,10 +479,22 @@ def batch_kernel_cases(dev, cfg, batch, rate):
         log("kernels", f"K1 hysteresis {label} iters={iters}: equal, {sweeps} "
             f"sweeps (plain loop the same), call {ms:.3f} ms, plain {pms:.3f} "
             f"ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+    out.update(recorded_k2_k3_cases(calls, "batch", rate))
+    return out
+
+
+def recorded_k2_k3_cases(calls, prefix, rate):
+    """K2 and K3 at a recorded run's own inputs (recording()), each equal to
+    its plain version, with the call's time, the plain version's and the
+    bound. Returns {"K2": [case], "K3": [case]}, labels starting with
+    `prefix`."""
+    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+
+    out = {"K2": [], "K3": []}
     for args, kw in calls["K2"]:
         emask, ys, xs, valid = args[0], args[3], args[4], args[5]
         max_r, cells = args[7], kw["cells"]
-        label = f"batch cells={cells} [{ys.shape[0]},{ys.shape[1]}]"
+        label = f"{prefix} cells={cells} [{ys.shape[0]},{ys.shape[1]}]"
         out_k = rescore_cuda.exact_rescore(*args, **kw)
         out_p = rescore_cuda.exact_rescore_plain(*args, **kw)
         err = check_equal(f"K2 {label}", out_k, out_p)
@@ -478,7 +511,7 @@ def batch_kernel_cases(dev, cfg, batch, rate):
             f"({b_by}: {steps} walk steps, {nbytes / 1e6:.1f} MB)")
     for args, kw in calls["K3"]:
         emask, ys, xs, want, min_r, max_r = args
-        label = f"batch [{ys.shape[0]},{ys.shape[1]}]"
+        label = f"{prefix} [{ys.shape[0]},{ys.shape[1]}]"
         out_k = radius_cuda.radius_support_pool(*args)
         out_p = radius_cuda.radius_support_pool_plain(*args)
         err = check_equal(f"K3 {label}", out_k, out_p)
@@ -712,7 +745,8 @@ def phase_profile(kernels, reps=5):
 
 
 def phase_tables(dev):
-    """Phase 3: direction bins and walk steps, CUDA against CPU."""
+    """Phase 3: direction bins and walk steps, CUDA against CPU; direction
+    bins also at BIN_COUNTS (the generated exception table on both)."""
     import torch
 
     from img2sgf_tpu_torch.hough.circles import direction_bins, pixel_steps
@@ -731,6 +765,14 @@ def phase_tables(dev):
                              f"{ns} walk steps of {dx.numel()} pairs")
     log("tables", f"direction_bins and pixel_steps equal on all "
         f"{dx.numel()} gradient pairs (CUDA vs CPU)")
+    for n in BIN_COUNTS:
+        nb = int((direction_bins(dx, dy, n)
+                  != direction_bins(dx.to(dev), dy.to(dev), n).cpu()).sum())
+        if nb:
+            raise AssertionError(f"direction_bins at {n} bins: CUDA and CPU "
+                                 f"differ on {nb} pairs")
+    log("tables", f"direction_bins equal on all {dx.numel()} pairs at "
+        f"{list(BIN_COUNTS)} bins (CUDA vs CPU)")
 
 
 def compare_results(a, b, label):
@@ -768,15 +810,7 @@ def phase_main_path(dev, rgb, stones, cfg):
     if any(m.plain_calls for m in counters):
         raise AssertionError("the main path called a plain version on the card")
 
-    if not bool(res.board_ready):
-        raise AssertionError("board not ready on the synthetic diagram")
-    if int(res.hsize) != N_LINES or int(res.vsize) != N_LINES:
-        raise AssertionError(f"grid {int(res.hsize)}x{int(res.vsize)}")
-    board = res.full_board.cpu().numpy()
-    missed = {ij: c for ij, c in stones.items() if board[ij] != c}
-    if missed:
-        raise AssertionError(f"planted stones missed or miscoloured: {missed}")
-    phantoms = int((board > 0).sum()) - len(stones)
+    phantoms = check_stones(res, None, stones, N_LINES, "detect_board")
     log("main", f"detect_board: board_ready, {N_LINES}x{N_LINES}, all "
         f"{len(stones)} planted stones found with their colours "
         f"({phantoms} extra stones at bare points)")
@@ -892,6 +926,128 @@ def phase_overflow(dev, cfg):
     return rerun_ms
 
 
+# Phase 4c: config values off the default path that the JAX package runs
+# (the per-offset accumulator, r = 0 in K2 and K3, block proposals, other
+# direction-bin counts), each on the 768^2 diagram and, CUDA against CPU, on
+# a smaller diagram whose CPU run stays short.
+CONFIG_VARIANTS = (
+    ("circle_max_radius=31", dict(circle_max_radius=31)),
+    ("circle_min_radius=0 circle_max_radius=29",
+     dict(circle_min_radius=0, circle_max_radius=29)),
+    ("propose_block=2", dict(propose_block=2)),
+    ("num_angle_bins=48", dict(num_angle_bins=48)),
+    ("num_angle_bins=63", dict(num_angle_bins=63)),
+)
+MIN_R0 = CONFIG_VARIANTS[1][0]  # the variant whose K2 and K3 inputs are kept
+COMPARE = dict(size=320, n=13, n_stones=20, seed=SEED + 30)
+
+
+def phase_configs(dev, rgb, stones, cfg):
+    """Phase 4c: detect_board under each CONFIG_VARIANTS value on the 768^2
+    diagram (counted: every planted stone found, each kernel launched, no
+    plain version on the card), its warm wall beside the default config's,
+    and its CUDA result equal to its CPU run on the COMPARE diagram. Returns
+    (launches by path, walls, the K1-K3 calls of the MIN_R0 run)."""
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.pipeline import detect_board
+
+    thr = choose_line_threshold(*rgb.shape[:2])
+    small, _ = render_diagram(**COMPARE)
+    sthr = choose_line_threshold(*small.shape[:2])
+    paths, walls, calls0 = {}, {}, None
+    for name, change in (("default", {}),) + CONFIG_VARIANTS:
+        vcfg = cfg.replace(**change)
+        if change:
+            launches = {}
+            with counted(launches):
+                res = detect_board(rgb, vcfg, thr, device=dev)
+            paths[f"detect_board {SIZE} {name}"] = launches
+            extra = check_stones(res, None, stones, N_LINES, name)
+        if name == MIN_R0:
+            with recording() as calls0:
+                detect_board(rgb, vcfg, thr, device=dev)
+        wall, stages = wall_runs(lambda tm: detect_board(
+            rgb, vcfg, thr, device=dev, timings=tm))
+        walls[f"detect_board_{SIZE}_{name.replace(' ', '_')}"] = dict(
+            wall_ms=wall * 1e3, stage_ms=stages)
+        if not change:
+            log("configs", f"default config: warm wall {wall * 1e3:.1f} ms")
+            continue
+        t0 = time.perf_counter()
+        res_c = detect_board(small, vcfg, sthr, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        compare_results(detect_board(small, vcfg, sthr, device=dev), res_c,
+                        f"{name} at {COMPARE['size']}^2, CUDA vs CPU")
+        log("configs", f"{name}: all {len(stones)} planted stones found at "
+            f"{SIZE}^2 ({extra} extra), launches {launches}; warm wall "
+            f"{wall * 1e3:.1f} ms (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in stages.items())
+            + f" ms); CUDA = CPU in every field at {COMPARE['size']}^2 "
+            f"(CPU run {cpu_s:.1f} s)")
+    return paths, walls, calls0
+
+
+def phase_hough(dev, rgb, cfg):
+    """Phase 4d: hough_circles_gradient, the diagnostic tools' single-plane
+    path, on the 768^2 diagram's grey plane: counted (K1, K2 and K3 each
+    launched), circles found, equal to its CPU run. Returns its launches."""
+    import torch
+
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.hough.circles import hough_circles_gradient
+    from img2sgf_tpu_torch.pipeline import detect_board
+
+    grey = detect_board(rgb, cfg, choose_line_threshold(*rgb.shape[:2]),
+                        device=dev).grey
+    args = (cfg.circle_canny_high, cfg.circle_acc_threshold,
+            cfg.circle_min_dist, cfg.circle_min_radius, cfg.circle_max_radius,
+            cfg.num_angle_bins, cfg.max_center_candidates,
+            cfg.max_circles_per_variant, cfg.hysteresis_iters)
+    launches = {}
+    with counted(launches):
+        circles, valid = hough_circles_gradient(grey, *args)
+    circles_c, valid_c = hough_circles_gradient(grey.cpu(), *args)
+    if not (torch.equal(circles.cpu(), circles_c)
+            and torch.equal(valid.cpu(), valid_c)):
+        raise AssertionError("hough_circles_gradient: CUDA and CPU differ")
+    n = int(valid.sum())
+    if n == 0:
+        raise AssertionError("hough_circles_gradient found no circle")
+    log("configs", f"hough_circles_gradient on the {SIZE}^2 grey plane: {n} "
+        f"circles, CUDA = CPU; launches {launches}")
+    return launches
+
+
+def phase_accumulator(dev, rgb, cfg):
+    """Phase 9: the per-offset accumulator (radius span 31) on the 768^2
+    diagram's 8 unique planes under torch.profiler, beside the cascade
+    (span 30) on the same labels: wall and device busy ms of one warm call."""
+    import torch
+
+    from img2sgf_tpu_torch.hough.circles import (
+        circle_plane_state_pool, vote_accumulator_cascade_labels,
+        vote_accumulator_offsets)
+    from img2sgf_tpu_torch.pipeline.detect import _pre_circles, _variant_dedup
+
+    v = _pre_circles(torch.from_numpy(rgb).to(dev)[None], cfg)[2][0]
+    keep, _ = _variant_dedup(cfg, v.shape[0])
+    lbl = circle_plane_state_pool(v[keep], cfg.circle_canny_high, 1, 31,
+                                  cfg.num_angle_bins, cfg.hysteresis_iters,
+                                  with_acc=False)["lbl"]
+    out = {}
+    nb = cfg.num_angle_bins
+    for name, fn in (("offsets_r1_31", lambda: vote_accumulator_offsets(lbl, nb, 1, 31)),
+                     ("cascade_r1_30", lambda: vote_accumulator_cascade_labels(lbl, nb, 1, 30))):
+        wall_ms, busy_ms, n, top = device_busy(fn, top=2)
+        out[name] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                         device_events=n)
+        log("configs", f"accumulator {name} over [{lbl.shape[0]},{SIZE},{SIZE}] "
+            f"labels: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms over "
+            f"{n} device kernels; most: " + "; ".join(
+                f"{k[:60]} {ms:.1f} ms x{c}" for k, ms, c in top))
+    return out
+
+
 COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
 
 
@@ -927,14 +1083,16 @@ def check_batch_launches(launches, label):
 
 
 def check_stones(res, i, stones, n_lines, label):
-    """Row i of a batch result: board-ready, n_lines x n_lines, and every
-    planted stone with its colour. Returns the extra stones' count."""
-    if not bool(res.board_ready[i]):
+    """Row i of a batch result (i=None: a single-image result): board-ready,
+    n_lines x n_lines, and every planted stone with its colour. Returns the
+    extra stones' count."""
+    row = (lambda t: t) if i is None else (lambda t: t[i])
+    if not bool(row(res.board_ready)):
         raise AssertionError(f"{label} image {i}: board not ready")
-    if int(res.hsize[i]) != n_lines or int(res.vsize[i]) != n_lines:
-        raise AssertionError(f"{label} image {i}: grid "
-                             f"{int(res.hsize[i])}x{int(res.vsize[i])}")
-    board = res.full_board[i].cpu().numpy()
+    h, v = int(row(res.hsize)), int(row(res.vsize))
+    if h != n_lines or v != n_lines:
+        raise AssertionError(f"{label} image {i}: grid {h}x{v}")
+    board = row(res.full_board).cpu().numpy()
     missed = {ij: c for ij, c in stones.items() if board[ij] != c}
     if missed:
         raise AssertionError(f"{label} image {i}: planted stones missed or "
@@ -1483,7 +1641,19 @@ def main() -> int:
     phase_tables(dev)
     launches, _wall, _stages = phase_main_path(dev, rgb, stones, cfg)
     rerun_ms = phase_overflow(dev, cfg)
+    cfg_paths, cfg_walls, calls0 = phase_configs(dev, rgb, stones, cfg)
+    hough_launches = phase_hough(dev, rgb, cfg)
+    # K2 and K3 at circle_min_radius = 0, at that run's own inputs; profiled
+    # with each kernel's other cases in phase 7
+    rate, _ = int32_ops_per_s(dev)
+    r0 = recorded_k2_k3_cases(calls0, "circle_min_radius=0", rate)
+    for k in r0:
+        kernels[k]["cases"] += r0[k]
+        kernels[k]["err"] = max([kernels[k]["err"]] + [c["err"] for c in r0[k]])
     paths, tput, small = phase_batch(dev, cfg, batch)
+    paths.update(cfg_paths)
+    paths[f"hough_circles_gradient {SIZE}"] = hough_launches
+    tput.update(cfg_walls)
     session_paths, session = phase_session(dev, rgb, cfg)
     with tempfile.TemporaryDirectory() as tmp:
         jpegs, loader = phase_loader(batch, tmp)
@@ -1501,6 +1671,9 @@ def main() -> int:
     log("profile", f"K1 main path after the busy profile: per call {n:g} "
         f"kernel launches ({n_mine:g} of {KERNEL_NAMES['K1']}), {n_d2h:g} "
         "device-to-host copies")
+    # last: a profile of thousands of launches has made the next profile
+    # record no device event at all
+    tput[f"accumulator_{SIZE}_8_planes"] = phase_accumulator(dev, rgb, cfg)
 
     names = COUNTERS
     paths = {f"detect_board {SIZE}": {k: launches[m] for k, m in names.items()},
@@ -1543,6 +1716,19 @@ def main() -> int:
                             for c in r["cases"]]
             row["overflow_rerun_wall_ms"] = rerun_ms
         rows.append(row)
+    # K2 (cells 5 and 3) and K3 at circle_min_radius = 0, rows of their own
+    r0_path = f"detect_board {SIZE} {MIN_R0}"
+    for k, cases in r0.items():
+        name, src, rep = meta[k]
+        for c in cases:
+            rows.append({
+                "name": f"{name} ({c['label']})", "route": "cuda",
+                "source": src, "replaces": rep,
+                "launches": paths[r0_path][k], "max_abs_err": c["err"],
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None, "kernel_ms": c["kernel_ms"],
+                "launches_by_path": {r0_path: paths[r0_path][k]}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"throughput": tput}))
     print(json.dumps({"session": session, "loader": loader}))

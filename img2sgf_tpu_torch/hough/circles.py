@@ -1,5 +1,5 @@
-"""Hough gradient circle detection, cv.HOUGH_GRADIENT semantics (port of the
-main-path functions of img2sgf_tpu/hough/circles.py).
+"""Hough gradient circle detection, cv.HOUGH_GRADIENT semantics (port of
+img2sgf_tpu/hough/circles.py).
 
 Every stage works on a pool of planes: images [P, H, W] and candidate lists
 [P, K]. The XLA schedule devices of the JAX package (pair-shrink before
@@ -9,6 +9,12 @@ tensor code that gives the same output. The exact-vote rescore and the
 radius histogram run through kernels K2 and K3 on the card
 (hough/rescore_cuda.py, hough/radius_cuda.py, which also hold their plain
 versions and the radius tables _hist10_tables and _hist10_scan).
+
+The single-image functions of the JAX package's diagnostic tools
+(circle_plane_state, circle_propose, vote_accumulator,
+hough_circles_gradient) take one [H, W] plane and run the pool functions on
+a pool of one. They keep the JAX signatures and defaults without the
+use_pallas switch: on a CUDA plane the kernels always run.
 """
 
 from __future__ import annotations
@@ -19,16 +25,23 @@ import math
 import numpy as np
 import torch
 
-from ..ops.common import shift2d
+from ..ops.canny import canny_pool
+from ..ops.common import border_remap, shift2d
+from ..ops.sobel import sobel3
+from . import _bin_exceptions as _bx
 from .radius_cuda import radius_support_pool
 from .rescore_cuda import exact_rescore
 
 __all__ = [
     "centre_candidates", "circle_candidates", "circle_finalize",
+    "circle_plane_state", "circle_plane_state_pool", "circle_propose",
     "circle_recentre", "circle_votes", "compact_candidates", "direction_bins",
-    "direction_labels", "exact_rescore", "greedy_min_dist", "pixel_steps",
-    "propose_from_acc", "provisional_ring", "radius_support_pool",
-    "top_k_set_by_count", "vote_accumulator_pool_labels",
+    "direction_labels", "exact_rescore", "greedy_min_dist",
+    "hough_circles_gradient", "pixel_steps", "propose_from_acc",
+    "provisional_ring", "radius_support_pool", "top_k_desc",
+    "top_k_set_by_count", "vote_accumulator", "vote_accumulator_cascade_labels",
+    "vote_accumulator_offsets", "vote_accumulator_pool",
+    "vote_accumulator_pool_labels",
 ]
 
 _INT32_MAX = 2 ** 31 - 1
@@ -59,33 +72,50 @@ def _cascade_tables(num_bins: int, min_r: int, max_r: int, seg: int = 5):
     return inner, outer
 
 
-# Gradient pairs (dx, dy) where the JAX package's float32 arctan2 on XLA:CPU
-# rounds across a bin boundary, with its bin. Found by comparing it with the
-# float64 angle over all 2041^2 Sobel pairs in [-1020, 1020]^2 (the nearest
-# integer direction sits 2.5e-7 bin widths from a boundary, far above
-# float64 error); tests/test_torch_circles.py re-checks every pair. Only the
-# default 64 bins are tabulated: other counts have their own exceptions
-# (48 bins: 22 pairs, 128 bins: 12).
-_BIN_EXCEPTIONS = {64: (
-    (-203, -904, 28), (-203, 904, 36), (203, -904, 36), (203, 904, 28),
-    (904, -203, 60), (904, 203, 4),
-)}
+@functools.lru_cache(maxsize=64)
+def _bin_exceptions_on(num_bins: int, device: str):
+    """The float32 bin table of one count on a device (_bin_exceptions):
+    the eight ray bins [8] int32, and the other pairs as sorted keys
+    dx * 2^16 + dy [M] int64 with their bins [M] int32 (None if M = 0).
+    `device` is str(tensor.device), which names the card ("cuda:1")."""
+    rays = torch.tensor(_bx.RAYS[num_bins], dtype=torch.int32, device=device)
+    pairs = sorted((dx * 65536 + dy, b) for dx, dy, b in
+                   _bx.PAIRS.get(num_bins, ()))
+    if not pairs:
+        return rays, None, None
+    keys = torch.tensor([k for k, _ in pairs], dtype=torch.int64, device=device)
+    vals = torch.tensor([b for _, b in pairs], dtype=torch.int32, device=device)
+    return rays, keys, vals
 
 
 def direction_bins(dx, dy, num_bins: int):
     """Gradient direction quantized to [0, num_bins) over [0, pi): the bin
-    the JAX package's round(atan2(dy, dx) / (pi / num_bins)) gives. Computed
-    in float64 (device-independent for integer gradients) plus the float32
-    exception table, so CPU and CUDA agree bit for bit."""
-    if num_bins not in _BIN_EXCEPTIONS:
-        raise ValueError(f"num_angle_bins={num_bins}: the port reproduces the "
-                         f"reference's float32 bins for {sorted(_BIN_EXCEPTIONS)}")
+    the JAX package's float32 round(atan2(dy, dx) / (pi / num_bins)) gives
+    on XLA:CPU, for any 1 <= num_bins <= 254 and Sobel gradients (|dx|,
+    |dy| <= 1020). Computed from the float64 angle, which depends on the
+    device only far from a bin boundary, then corrected from the generated
+    table _bin_exceptions: one bin for each of the eight rays dx = 0, dy = 0
+    and |dx| = |dy| (exact ties for some counts) and a short list of other
+    pairs where float32 rounds across a boundary. CPU and CUDA agree bit
+    for bit."""
+    if not 1 <= num_bins <= 254:
+        raise ValueError(f"num_angle_bins={num_bins}: labels are uint8 with "
+                         "a num_bins sentinel, so 1 <= num_bins <= 254")
     ang = torch.atan2(dy.to(torch.float64), dx.to(torch.float64))
     bins = torch.remainder(
         torch.round(ang / (math.pi / num_bins)).to(torch.int32), num_bins)
-    for ex, ey, b in _BIN_EXCEPTIONS[num_bins]:
-        bins = torch.where((dx == ex) & (dy == ey), torch.full_like(bins, b),
-                           bins)
+    rays, keys, vals = _bin_exceptions_on(num_bins, str(bins.device))
+    on_axis, on_diag, on_anti = dx == 0, dx == dy, dx == -dy
+    pos_x, neg_x = dx > 0, dx < 0
+    masks = (on_axis & (dy > 0), on_axis & (dy < 0), (dy == 0) & pos_x,
+             (dy == 0) & neg_x, on_diag & pos_x, on_diag & neg_x,
+             on_anti & pos_x, on_anti & neg_x)
+    for i, m in enumerate(masks):
+        bins = torch.where(m, rays[i], bins)
+    if keys is not None:
+        key = dx.to(torch.int64) * 65536 + dy.to(torch.int64)
+        pos = torch.searchsorted(keys, key).clamp(max=keys.numel() - 1)
+        bins = torch.where(keys[pos] == key, vals[pos], bins)
     return bins
 
 
@@ -121,7 +151,72 @@ def pixel_steps(dx, dy):
     return sx, sy
 
 
+def _walk_offsets(ux: float, uy: float, min_r: int, max_r: int):
+    """Exact OpenCV vote-walk offsets for direction (ux, uy), both ways
+    (verbatim from the JAX package): the cell of step r is
+    floor(r*s*sx/1024) with sx = round(1024*ux) (not the negation for the -
+    direction). Duplicate cells get several votes: (dy, dx) -> weight."""
+    sx = round(1024 * ux)
+    sy = round(1024 * uy)
+    weights: dict[tuple[int, int], int] = {}
+    for sign in (1, -1):
+        for r in range(min_r, max_r + 1):
+            o = (math.floor(sign * r * sy / 1024), math.floor(sign * r * sx / 1024))
+            weights[o] = weights.get(o, 0) + 1
+    return weights
+
+
+def vote_accumulator_offsets(labels, num_bins: int, min_r: int, max_r: int):
+    """Exact per-offset centre-vote accumulator over a pool of [P, H, W]
+    direction labels: per bin, the bin's edge plane shifted to every cell of
+    the exact fixed-point walk (_walk_offsets) and added with its weight.
+    The JAX package's vote_accumulator for radius spans that do not divide
+    into segments of 5; its float32 chain adds integers below 2^24, so the
+    int32 sums here equal it. Returns f32."""
+    P, H, W = labels.shape
+    pad = max_r
+    lab = torch.nn.functional.pad(labels.to(torch.int32),
+                                  (pad, pad, pad, pad), value=num_bins)
+    acc = torch.zeros((P, H, W), dtype=torch.int32, device=labels.device)
+    step = math.pi / num_bins
+    for d in range(num_bins):
+        e_d = (lab == d).to(torch.int32)
+        phi = d * step
+        for (oy, ox), w in _walk_offsets(math.cos(phi), math.sin(phi), min_r,
+                                         max_r).items():
+            acc.add_(e_d[:, pad - oy:pad - oy + H, pad - ox:pad - ox + W],
+                     alpha=w)
+    return acc.to(torch.float32)
+
+
 def vote_accumulator_pool_labels(labels, num_bins: int, min_r: int, max_r: int):
+    """Centre-vote accumulator over a pool of [P, H, W] direction labels:
+    the cascade when the radius span divides into segments of 5, the exact
+    per-offset accumulator otherwise, as the JAX package's vote_accumulator
+    chooses. Returns f32."""
+    if (max_r - min_r + 1) % 5:
+        return vote_accumulator_offsets(labels, num_bins, min_r, max_r)
+    return vote_accumulator_cascade_labels(labels, num_bins, min_r, max_r)
+
+
+def vote_accumulator_pool(emask, dx, dy, num_bins: int, min_r: int,
+                          max_r: int):
+    """Accumulators of a pool of [P, H, W] planes from their edge masks and
+    Sobel gradients (the JAX package's vote_accumulator_pool)."""
+    return vote_accumulator_pool_labels(
+        direction_labels(emask, dx, dy, num_bins), num_bins, min_r, max_r)
+
+
+def vote_accumulator(edge_mask, dx, dy, num_bins: int, min_r: int, max_r: int):
+    """Centre-vote accumulator A [H, W] f32 of one plane: edge_mask [H, W]
+    bool (Canny edges with a nonzero gradient), dx, dy int32 Sobel
+    gradients (vote_accumulator_pool of a pool of one)."""
+    return vote_accumulator_pool(edge_mask[None], dx[None], dy[None], num_bins,
+                                 min_r, max_r)[0]
+
+
+def vote_accumulator_cascade_labels(labels, num_bins: int, min_r: int,
+                                    max_r: int):
     """Approximate centre-vote accumulator over a pool of [P, H, W] direction
     labels (direction_labels): per bin, a partial plane of the `seg` inner
     shifts, sampled at the outer segment offsets. Exact integer sums, equal
@@ -171,6 +266,16 @@ def top_k_set_by_count(score, k: int):
     return torch.gather(score, -1, idx), idx, ok
 
 
+def top_k_desc(score, k: int):
+    """lax.top_k semantics along the last dim: (values, indices) of the k
+    largest scores in descending order, ties to the smaller index, from one
+    stable descending sort (the JAX package's sort path, used there above
+    4096; lax.top_k below gives the same rows). With fewer than k scores,
+    all of them."""
+    order = _stable_argsort(score, descending=True)[..., :k]
+    return torch.gather(score, -1, order), order
+
+
 def _f32(x: float, dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
@@ -185,14 +290,47 @@ def _content(hw, H: int, W: int, ndim: int):
     return hw[0].reshape(shape), hw[1].reshape(shape)
 
 
+def _block_candidates(acc, is_max, top_k: int, block: int,
+                      margin: float | None):
+    """centre_candidates' block > 1 path: the strongest maximum of each
+    block x block tile (the first in the tile's scan order), tiles ranked by
+    top_k_desc, so rows come in vote order. Counts are of live tiles."""
+    P, H, W = acc.shape
+    b = block
+    Hb, Wb = -(-H // b), -(-W // b)
+    s = torch.full((P, Hb * b, Wb * b), -1.0, dtype=acc.dtype,
+                   device=acc.device)
+    s[:, :H, :W] = torch.where(is_max, acc, _f32(-1.0, acc.device))
+    tiles = s.reshape(P, Hb, b, Wb, b).permute(0, 1, 3, 2, 4).reshape(
+        P, Hb * Wb, b * b)
+    bmax = tiles.amax(dim=2)
+    barg = tiles.argmax(dim=2)  # the first max: scan order in the tile
+    votes, bidx = top_k_desc(bmax, top_k)
+    cell = torch.gather(barg, 1, bidx)
+    ys = (bidx // Wb) * b + cell // b
+    xs = (bidx % Wb) * b + cell % b
+    counts = (bmax.gt(0).sum(dim=1, dtype=torch.int32),)
+    if margin is not None:
+        counts += ((bmax >= _f32(margin, acc.device)).sum(
+            dim=1, dtype=torch.int32),)
+    return (ys.clamp(max=H - 1), xs.clamp(max=W - 1), votes,
+            votes > 0) + counts
+
+
 def centre_candidates(acc, acc_threshold: float, top_k: int,
                       margin: float | None = None,
-                      select_min: float | None = None, hw=None):
+                      select_min: float | None = None, hw=None,
+                      block: int = 1):
     """The top_k accumulator 4-neighbour maxima > threshold of each plane
     of acc [P, H, W], as a set in stream order with a valid prefix.
     Returns (ys, xs, votes, valid, n_live[, n_margin]); border cells are
     excluded (OpenCV scans y, x in [1, size-2]; with hw=(hs, ws) [P] the
-    size is each plane's content block)."""
+    size is each plane's content block).
+
+    block > 1: only the strongest maximum of each block x block tile
+    competes, rows come in vote-descending order (ties to the smaller tile
+    index), and the counts are of live tiles, after select_min
+    (_block_candidates; the JAX package's block path)."""
     P, H, W = acc.shape
     dev = acc.device
     h, w = _content(hw, H, W, 3)
@@ -207,6 +345,10 @@ def centre_candidates(acc, acc_threshold: float, top_k: int,
         & (acc >= shift2d(acc, -1, 0))
         & interior
     )
+    if block > 1:
+        if select_min is not None:
+            is_max = is_max & (acc >= _f32(select_min, dev))
+        return _block_candidates(acc, is_max, top_k, block, margin)
     n_live = is_max.sum(dim=(1, 2), dtype=torch.int32)
     counts = (n_live,)
     if margin is not None:
@@ -223,12 +365,15 @@ def centre_candidates(acc, acc_threshold: float, top_k: int,
 def propose_from_acc(acc, acc_threshold: float, top_k: int,
                      threshold_factor: float = 0.5,
                      margin_factor: float | None = None,
-                     select_floor: float | None = None, hw=None):
+                     select_floor: float | None = None, hw=None,
+                     block: int = 1):
     """Budget-dependent proposal selection: (ys, xs, valid) [P, top_k] and
     the exact margin-gated saturation flag sat [P] (more qualifying maxima
     than slots, with the top_k'th at or above margin_factor *
     acc_threshold; see the JAX package's propose_from_acc). hw=(hs, ws):
-    per-plane content dims bounding the scan."""
+    per-plane content dims bounding the scan. block > 1: one maximum per
+    tile, in vote order, with fewer than top_k rows when the planes have
+    fewer tiles (centre_candidates)."""
     P, H, W = acc.shape
     floor = threshold_factor * acc_threshold
     margin = None
@@ -238,7 +383,7 @@ def propose_from_acc(acc, acc_threshold: float, top_k: int,
     if select_floor is not None and select_floor > floor:
         sel_min = select_floor
     out = centre_candidates(acc, floor, top_k, margin=margin,
-                            select_min=sel_min, hw=hw)
+                            select_min=sel_min, hw=hw, block=block)
     ys, xs, _votes, valid, n_live = out[:5]
     sat = n_live > top_k
     if margin is not None:
@@ -262,10 +407,17 @@ def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
     """Stage 2b: every cell of each proposal's central 3x3 that passes
     OpenCV's candidate test on its exact 5x5 votes (> threshold, > left,
     >= right, > up, >= down, interior of the content block hw, else of the
-    canvas). Returns (ys_c, xs_c, votes, ok), each [P, K*9]."""
+    canvas). Returns (ys_c, xs_c, votes, ok), each [P, K*9].
+
+    A 3x3 patch takes the JAX package's legacy path, which the diagnostic
+    tools use: the patch's best cell (the first maximum), tested against
+    its in-patch neighbours (an out-of-patch neighbour passes at -1), with
+    no interior test; each [P, K]."""
     P, K, cells = patch.shape[0], patch.shape[1], patch.shape[2]
+    if cells == 3:
+        return _recentre_argmax(patch, ys, xs, valid, acc_threshold, H, W)
     if cells != 5:
-        raise ValueError("the port's recentre takes 5x5 patches only")
+        raise ValueError("recentre takes 3x3 or 5x5 patches")
     dev = patch.device
     flat = patch.reshape(P, K, 25)
     c = torch.from_numpy(_CENTRE).to(dev)
@@ -285,6 +437,32 @@ def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
     ok = valid[..., None] & nms_ok & (v > _f32(acc_threshold, dev)) & interior
     return (cy.clamp(0, H - 1).reshape(P, -1), cx.clamp(0, W - 1).reshape(P, -1),
             v.reshape(P, -1), ok.reshape(P, -1))
+
+
+def _recentre_argmax(patch, ys, xs, valid, acc_threshold: float, H: int,
+                     W: int):
+    """circle_recentre of 3x3 patches [P, K, 3, 3]: (ys_c, xs_c, votes, ok),
+    each [P, K]."""
+    P, K = patch.shape[:2]
+    flat = patch.reshape(P, K, 9)
+    best = flat.argmax(dim=2)  # the first maximum
+    votes = torch.gather(flat, 2, best[..., None])[..., 0]
+    py, px = best // 3, best % 3
+    minus1 = _f32(-1.0, patch.device)
+
+    def nbr(dy, dx):
+        yy, xx = py + dy, px + dx
+        inside = (yy >= 0) & (yy < 3) & (xx >= 0) & (xx < 3)
+        idx = yy.clamp(0, 2) * 3 + xx.clamp(0, 2)
+        return torch.where(inside, torch.gather(flat, 2, idx[..., None])[..., 0],
+                           minus1)
+
+    nms_ok = ((votes > nbr(0, -1)) & (votes >= nbr(0, 1))
+              & (votes > nbr(-1, 0)) & (votes >= nbr(1, 0)))
+    ys_c = (ys.long() + py - 1).clamp(0, H - 1)
+    xs_c = (xs.long() + px - 1).clamp(0, W - 1)
+    return (ys_c, xs_c, votes,
+            valid & (votes > _f32(acc_threshold, patch.device)) & nms_ok)
 
 
 _RING = np.array([i * 5 + j for i in range(5) for j in range(5)
@@ -511,3 +689,100 @@ def circle_finalize(ys_c, xs_c, valid2, r_best, support, acc_threshold: float,
     cy = g(ys_s, 1, keep).to(torch.float32) + 0.5
     circles = torch.stack([cx, cy, g(r_s, 1, keep)], dim=-1)
     return torch.where(out_valid[..., None], circles, _f32(0.0, dev)), out_valid
+
+
+def circle_plane_state_pool(planes, canny_high: float, min_r: int, max_r: int,
+                            num_bins: int, hysteresis_iters: int = 24,
+                            hw_planes=None, with_acc: bool = True,
+                            edges=None):
+    """Budget-independent circle state of a [P, H, W] uint8 plane pool:
+    internal Canny (one hysteresis call for the pool, unless `edges` gives
+    the [P, H, W] edge maps), walk steps, and the accumulator
+    (vote_accumulator_pool_labels). hw_planes=(hs, ws): [P] content dims;
+    Sobel then reads the replicate-remapped plane. Returns dict(emask, sx,
+    sy, acc), or with with_acc=False dict(emask, sx, sy, lbl), lbl the
+    uint8 direction labels."""
+    if edges is None:
+        edges = canny_pool(planes, max(canny_high / 2, 1), canny_high,
+                           iters=hysteresis_iters, hw_planes=hw_planes)
+    if hw_planes is not None:
+        planes = border_remap(planes, hw_planes[0], hw_planes[1], "replicate")
+    dx, dy = sobel3(planes)
+    emask = (edges > 0) & ((dx != 0) | (dy != 0))
+    sx, sy = pixel_steps(dx, dy)
+    zero = torch.zeros_like(sx)
+    labels = direction_labels(emask, dx, dy, num_bins)
+    out = dict(emask=emask, sx=torch.where(emask, sx, zero),
+               sy=torch.where(emask, sy, zero))
+    if with_acc:
+        out["acc"] = vote_accumulator_pool_labels(labels, num_bins, min_r,
+                                                  max_r)
+    else:
+        out["lbl"] = labels
+    return out
+
+
+def _hw_of_one(hw, dev):
+    """Single-image content dims (h, w) as the [1] tensors of a pool of one."""
+    if hw is None:
+        return None
+    return tuple(torch.as_tensor(v, device=dev).reshape(1).long() for v in hw)
+
+
+def circle_plane_state(img_u8, canny_high: float, min_r: int, max_r: int,
+                       num_bins: int, hysteresis_iters: int = 24, hw=None,
+                       with_acc: bool = True, edges=None):
+    """Stage 1a of one [H, W] plane (circle_plane_state_pool of a pool of
+    one): dict(emask, sx, sy, acc), or dict(emask, sx, sy, lbl) with
+    with_acc=False. hw=(h, w): content dims inside a canvas; edges: a
+    precomputed [H, W] internal-Canny edge map."""
+    st = circle_plane_state_pool(
+        img_u8[None], canny_high, min_r, max_r, num_bins, hysteresis_iters,
+        hw_planes=_hw_of_one(hw, img_u8.device), with_acc=with_acc,
+        edges=None if edges is None else edges[None])
+    return {k: v[0] for k, v in st.items()}
+
+
+def circle_propose(img_u8, canny_high: float, acc_threshold: float,
+                   min_r: int, max_r: int, num_bins: int, top_k: int,
+                   hysteresis_iters: int = 24, hw=None, block: int = 1,
+                   threshold_factor: float = 0.5):
+    """Stage 1 of one [H, W] plane: plane state and the proposals of
+    propose_from_acc (no margin, no floor). Returns dict(emask, sx, sy, ys,
+    xs, valid, sat)."""
+    hwp = _hw_of_one(hw, img_u8.device)
+    st = circle_plane_state_pool(img_u8[None], canny_high, min_r, max_r,
+                                 num_bins, hysteresis_iters, hw_planes=hwp)
+    ys, xs, valid, sat = propose_from_acc(
+        st["acc"], acc_threshold, top_k, threshold_factor=threshold_factor,
+        hw=hwp, block=block)
+    return dict(emask=st["emask"][0], sx=st["sx"][0], sy=st["sy"][0],
+                ys=ys[0], xs=xs[0], valid=valid[0], sat=sat[0])
+
+
+def hough_circles_gradient(img_u8, canny_high: float, acc_threshold: float,
+                           min_dist: float, min_r: int, max_r: int,
+                           num_bins: int, top_k: int, max_out: int,
+                           hysteresis_iters: int = 24, hw=None,
+                           cells: int = 5):
+    """cv.HoughCircles(HOUGH_GRADIENT) on one [H, W] uint8 plane, as the
+    JAX package composes it for its diagnostic tools: circle_propose, the
+    exact candidates with a ring budget of 512 and no compaction (the
+    ring's budget truncates in stream order), the radius stage and
+    circle_finalize with the packed sort key. Returns (circles [max_out, 3]
+    f32 as (cx, cy, r) with OpenCV's +0.5 centre offset, valid [max_out]).
+    Runs K1 (in the Canny), K2 and K3 on a CUDA plane."""
+    H, W = img_u8.shape
+    assert cells == 5, "the cv2-exact candidate flow requires 5x5 patches"
+    st = circle_propose(img_u8, canny_high, acc_threshold, min_r, max_r,
+                        num_bins, top_k, hysteresis_iters, hw=hw)
+    one = {k: v[None] for k, v in st.items()}
+    ys_c, xs_c, _votes, valid2, _ring_sat = circle_candidates(
+        one["emask"], one["sx"], one["sy"], one["ys"], one["xs"],
+        one["valid"], min_r, max_r, acc_threshold, H, W,
+        hw=_hw_of_one(hw, img_u8.device))
+    r_best, support = radius_support_pool(one["emask"], ys_c, xs_c, valid2,
+                                          min_r, max_r)
+    circles, valid = circle_finalize(ys_c, xs_c, valid2, r_best, support,
+                                     acc_threshold, min_dist, max_out)
+    return circles[0], valid[0]

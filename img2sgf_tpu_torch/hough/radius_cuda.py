@@ -28,6 +28,12 @@ reference rounds it, and the library is built with --fmad=false so that no
 other product is contracted into one. A call is one kernel launch and no
 device read; any want mask, any P and any radius range whose two int32
 tables per warp fit shared memory run.
+
+At min_r = 0 the annulus is a disk: one span per window row, the centre
+rows included. Its nearest pixels lie sqrt(0.5) from (cx+.5, cy+.5), in bin
+7, so no run is anchored below bin 7; a run anchored at bin 1 would have
+r_cur = 0, where cnt*r_best >= max_count*0 always holds, in the kernel as
+in _hist10_scan.
 """
 
 from __future__ import annotations
@@ -236,7 +242,7 @@ def radius_support_pool(emask, ys, xs, want, min_r: int, max_r: int):
     [P, K] bool, any mask. Returns (r_best, support) [P, K] f32, zeros
     where not wanted. CPU tensors take the plain version; CUDA tensors
     launch K3 (ys and xs then int32 or int64, of one dtype)."""
-    if min_r < 1 or max_r < min_r:
+    if min_r < 0 or max_r < min_r:
         raise ValueError(f"bad radius range [{min_r}, {max_r}]")
     if emask.ndim != 3 or emask.dtype != torch.bool:
         raise ValueError("emask must be [P, H, W] bool")

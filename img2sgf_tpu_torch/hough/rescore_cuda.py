@@ -20,6 +20,11 @@ every radius runs; every lane walks one edge pixel, rhat comes from the
 per-offset table of _geometry, and landings go to the warp's integer
 counters, exact in any order. The kernel reads emask, sx and sy directly;
 only the plain version packs them into one word.
+
+min_r = 0 (a value the JAX package runs on its XLA path) needs nothing of
+its own: the step r = 0 lands a pixel on its own cell, from both signed
+walks of the central block, as OpenCV's two walks count it, and
+rhat - kmax <= 0 for every pixel of the patch, so the walk reaches it.
 """
 
 from __future__ import annotations
@@ -167,8 +172,8 @@ def exact_rescore(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     """
     if cells not in (3, 5):
         raise ValueError("rescore patch must be 3x3 or 5x5")
-    if min_r < 1:
-        raise ValueError("min_r must be >= 1")
+    if min_r < 0:
+        raise ValueError("min_r must be >= 0")
     if emask.ndim != 3 or sx.shape != emask.shape or sy.shape != emask.shape:
         raise ValueError("emask, sx, sy must be matching [P, H, W]")
     if ys.ndim != 2 or ys.shape != xs.shape or ys.shape != valid.shape \

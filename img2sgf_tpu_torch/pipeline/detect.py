@@ -41,19 +41,15 @@ from ..grid.identify import identify_board
 from ..hough.circles import (
     circle_candidates,
     circle_finalize,
-    direction_labels,
-    pixel_steps,
+    circle_plane_state_pool,
     propose_from_acc,
     radius_support_pool,
-    vote_accumulator_pool_labels,
 )
 from ..hough.erase import erase_circles
 from ..hough.lines import hough_lines_intercepts
 from ..ops.blur import blur_pyramid
-from ..ops.canny import canny_pool, canny_rgb_pool
+from ..ops.canny import canny_rgb_pool
 from ..ops.color import grey_bgr_quirk, preprocess
-from ..ops.common import border_remap
-from ..ops.sobel import sobel3
 
 
 @dataclasses.dataclass
@@ -120,40 +116,17 @@ def _pre_circles(rgb_u8, cfg: DetectionConfig, hw=None):
     return grey, edges, variants
 
 
-def _check_ported(cfg: DetectionConfig):
-    """Reject config values that select a JAX code path the port does not
-    have, so that they cannot be silently ignored."""
-    if (cfg.circle_max_radius - cfg.circle_min_radius + 1) % 5:
-        raise ValueError("the port's cascade accumulator needs a radius span "
-                         "divisible by 5 (the per-offset accumulator is not "
-                         "ported)")
-    if cfg.propose_block != 1:
-        raise ValueError("propose_block > 1 (block-max proposal compaction) "
-                         "is not ported")
-
-
 def _plane_state_pool(planes, cfg: DetectionConfig, hw_planes=None):
     """Budget-independent circle state of a [P, H, W] plane pool: internal
-    Canny, walk steps and the cascade accumulator. hw_planes=(hs, ws): [P]
-    content dims; Sobel then reads the replicate-remapped plane. Returns
-    dict(emask, sx, sy, acc), plus hs and ws with hw_planes: the state
-    carries its planes' content dims into the selection stages."""
-    _check_ported(cfg)
-    edges = canny_pool(planes, max(cfg.circle_canny_high / 2, 1),
-                       cfg.circle_canny_high, iters=cfg.hysteresis_iters,
-                       hw_planes=hw_planes)
-    if hw_planes is not None:
-        planes = border_remap(planes, hw_planes[0], hw_planes[1], "replicate")
-    dx, dy = sobel3(planes)
-    emask = (edges > 0) & ((dx != 0) | (dy != 0))
-    sx, sy = pixel_steps(dx, dy)
-    zero = torch.zeros_like(sx)
-    labels = direction_labels(emask, dx, dy, cfg.num_angle_bins)
-    acc = vote_accumulator_pool_labels(labels, cfg.num_angle_bins,
-                                       cfg.circle_min_radius,
-                                       cfg.circle_max_radius)
-    st = dict(emask=emask, sx=torch.where(emask, sx, zero),
-              sy=torch.where(emask, sy, zero), acc=acc)
+    Canny, walk steps and the accumulator (circle_plane_state_pool; the
+    cascade, or the per-offset accumulator for a radius span not divisible
+    by 5). hw_planes=(hs, ws): [P] content dims. Returns dict(emask, sx, sy,
+    acc), plus hs and ws with hw_planes: the state carries its planes'
+    content dims into the selection stages."""
+    st = circle_plane_state_pool(
+        planes, cfg.circle_canny_high, cfg.circle_min_radius,
+        cfg.circle_max_radius, cfg.num_angle_bins,
+        hysteresis_iters=cfg.hysteresis_iters, hw_planes=hw_planes)
     if hw_planes is not None:
         st["hs"], st["ws"] = hw_planes
     return st
@@ -180,7 +153,7 @@ def _select_candidates(st, cfg: DetectionConfig, top_k: int | None = None,
         st["acc"], cfg.circle_acc_threshold, top_k,
         threshold_factor=cfg.propose_threshold_factor,
         margin_factor=cfg.overflow_margin_factor,
-        select_floor=sel_floor, hw=hw,
+        select_floor=sel_floor, hw=hw, block=cfg.propose_block,
     )
     ys_c, xs_c, _votes, valid2, ring_sat = circle_candidates(
         st["emask"], st["sx"], st["sy"], ys, xs, pvalid,

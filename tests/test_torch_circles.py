@@ -52,17 +52,19 @@ def all_pairs():
 
 def test_direction_bins_all_pairs(all_pairs):
     """Every Sobel gradient pair: the port's bin equals JAX's float32 one.
-    The port takes the float64 angle plus a table of the 6 pairs where
-    float32 arctan2 rounds across a bin boundary; the count is pinned."""
+    The port takes the float64 angle plus the generated table, which at 64
+    bins lists the 6 pairs where float32 arctan2 rounds across a bin
+    boundary (the count is pinned); 48 bins, once refused, equal too."""
     dx, dy = all_pairs
     want = np.asarray(jax.jit(lambda a, b: jc.direction_bins(a, b, 64))(dx, dy))
     got = tc.direction_bins(T(dx), T(dy), 64).numpy()
     np.testing.assert_array_equal(got, want)
     ang = np.arctan2(dy.astype(np.float64), dx.astype(np.float64))
     f64 = np.mod(np.round(ang / (math.pi / 64)).astype(np.int32), 64)
-    assert int((f64 != want).sum()) == len(tc._BIN_EXCEPTIONS[64]) == 6
-    with pytest.raises(ValueError):
-        tc.direction_bins(T(dx[:2, :2]), T(dy[:2, :2]), 48)
+    assert int((f64 != want).sum()) == len(tc._bx.PAIRS[64]) == 6
+    want48 = np.asarray(jax.jit(lambda a, b: jc.direction_bins(a, b, 48))(dx, dy))
+    np.testing.assert_array_equal(tc.direction_bins(T(dx), T(dy), 48).numpy(),
+                                  want48)
 
 
 def test_pixel_steps_all_pairs(all_pairs):

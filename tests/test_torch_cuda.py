@@ -199,6 +199,65 @@ def test_detect_board_cuda_equals_cpu(dev, max_r):
         assert x.dtype == y.dtype and torch.equal(x, y), f.name
 
 
+@pytest.mark.parametrize("cells", [3, 5])
+def test_k2_min_r_zero_equals_plain(dev, cells):
+    """circle_min_radius = 0: the r = 0 step, with edge pixels on the
+    candidate centres."""
+    rng = np.random.default_rng(40 + cells)
+    P, H, W, K = 2, 120, 140, 200
+    emask = rng.random((P, H, W)) < 0.12
+    ys = rng.integers(0, H, (P, K))
+    xs = rng.integers(0, W, (P, K))
+    emask[0, ys[0, :50], xs[0, :50]] = True
+    ang = rng.uniform(0, 2 * np.pi, (P, H, W))
+    sx = (np.rint(1024 * np.cos(ang)).astype(np.int32)) * emask
+    sy = (np.rint(1024 * np.sin(ang)).astype(np.int32)) * emask
+    valid = np.arange(K)[None, :] < np.array([[K], [61]])
+    args = [torch.from_numpy(np.asarray(a)).to(dev)
+            for a in (emask, sx.astype(np.int32), sy.astype(np.int32), ys, xs,
+                      valid)]
+    before = rescore_cuda.launches
+    got = rescore_cuda.exact_rescore(*args, 0, 30, cells=cells)
+    assert rescore_cuda.launches == before + 1
+    assert torch.equal(got, rescore_cuda.exact_rescore_plain(*args, 0, 30,
+                                                             cells=cells))
+    assert (got >= rescore_cuda.exact_rescore(*args, 1, 30, cells=cells)).all()
+
+
+def test_k3_min_r_zero_equals_plain(dev):
+    """circle_min_radius = 0: the disk's spans, with pixels at d < 1 of
+    some centres, random and edge-clipped windows."""
+    rng = np.random.default_rng(44)
+    P, H, W, K = 3, 100, 120, 300
+    emask = rng.random((P, H, W)) < 0.1
+    ys = rng.integers(0, H, (P, K))
+    xs = rng.integers(0, W, (P, K))
+    emask[1, ys[1, :40], xs[1, :40]] = True
+    want = rng.random((P, K)) < 0.5
+    args = [torch.from_numpy(a).to(dev) for a in (emask, ys, xs, want)]
+    before = radius_cuda.launches
+    got = radius_cuda.radius_support_pool(*args, 0, 29)
+    assert radius_cuda.launches == before + 1
+    plain = radius_cuda.radius_support_pool_plain(*args, 0, 29)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("change", [
+    dict(circle_max_radius=31), dict(circle_min_radius=0, circle_max_radius=29),
+    dict(propose_block=2), dict(num_angle_bins=48), dict(num_angle_bins=63)],
+    ids=["max_r31", "min_r0", "block2", "bins48", "bins63"])
+def test_detect_board_config_cuda_equals_cpu(dev, change):
+    """The config values off the default path: CUDA equal to the CPU run."""
+    rgb = _diagram()
+    cfg = DetectionConfig().replace(**change)
+    a = detect_board(rgb, cfg, 31, device=dev)
+    b = detect_board(rgb, cfg, 31, device="cpu")
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
+        assert x.dtype == y.dtype and torch.equal(x, y), f.name
+    assert bool(a.board_ready)
+
+
 def _two_image_pool(dev):
     """The plane state of two diagrams of mixed sizes in one 192 canvas
     (margins 0 and 2): 16 planes with per-plane content dims."""

@@ -146,11 +146,18 @@ def test_detect_board_large_radius_every_field():
 @pytest.mark.parametrize("change", [dict(propose_block=2),
                                     dict(circle_max_radius=31)])
 def test_unported_config_values_raise(change):
-    """Values that select a JAX path the port lacks raise, not ignored."""
-    cfg = DetectionConfig().replace(**change)
-    with pytest.raises(ValueError, match="not ported"):
-        detect_board(synth_board(size=64, n=5, stones=()), cfg, 20.0,
-                     device="cpu")
+    """The values the port once refused (block proposals; a radius span of
+    31, which takes the per-offset accumulator) now run, raise nothing, and
+    equal the JAX package in every field, with the stones found."""
+    jcfg = dataclasses.replace(TINY, **change)
+    rgb = synth_board()
+    jres = detect_board_jit(jnp.asarray(rgb), jcfg, 28.0)
+    tres = detect_board(rgb, from_jax_config(dataclasses.asdict(jcfg)), 28.0,
+                        device="cpu")
+    _compare(jres, tres)
+    assert bool(tres.board_ready) and int(tres.hsize) == 9
+    b = tres.detected_board.numpy()
+    assert b[2, 3] == 1 and b[4, 4] == 2 and b[6, 2] == 1
 
 
 def _png(tmp_path, rgb):

@@ -53,12 +53,10 @@ def test_k2_counts(cells, seed):
     assert covered.sum() < emask.size  # the windows leave pixels unread
 
 
-@pytest.mark.parametrize("dtype", [np.int32, np.int64])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k3_work(dtype, seed):
-    emask, ys, xs, want = _inputs(seed, dtype)
+def _k3_brute(emask, ys, xs, want, min_r, max_r):
+    """k3_work's (bytes, instructions) by a loop over every wanted window's
+    annulus offsets."""
     P, H, W = emask.shape
-    min_r, max_r = 2, 5
     bmap, win, _ = radius_cuda._bin_map(min_r, max_r)
     offsets = [(i // win - max_r, i % win - max_r)
                for i in np.flatnonzero(bmap >= 0)]
@@ -73,5 +71,23 @@ def test_k3_work(dtype, seed):
                 n_edge += int(emask[p, y, x])
     nbytes = (covered.sum() + 2 * ys.itemsize * want.sum() + 9 * want.size
               + 4 * win * win + 16 * win)
-    assert k3_work(T(emask), T(ys), T(xs), T(want), min_r, max_r) == \
-        (nbytes, n_in + 2 * n_edge)
+    return nbytes, n_in + 2 * n_edge
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_work(dtype, seed):
+    emask, ys, xs, want = _inputs(seed, dtype)
+    assert k3_work(T(emask), T(ys), T(xs), T(want), 2, 5) == \
+        _k3_brute(emask, ys, xs, want, 2, 5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_work_disk(seed):
+    """circle_min_radius = 0: the annulus is a disk, centre pixel
+    included."""
+    emask, ys, xs, want = _inputs(seed)
+    bmap, win, _ = radius_cuda._bin_map(0, 5)
+    assert bmap[(win * win) // 2] >= 0
+    assert k3_work(T(emask), T(ys), T(xs), T(want), 0, 5) == \
+        _k3_brute(emask, ys, xs, want, 0, 5)
