@@ -12,6 +12,11 @@ Phases, each printing one line or a few:
      diagram's own inputs, random centres at max_r 30 and 60, and the
      noisy diagram's overflow-rerun inputs), exactly equal, with both times
      and the roofline bound; K1's sweep count equal to the plain loop's;
+     the greedy minimum-distance kernel at the recorded inputs of the 768^2
+     detect_board, the 16-image bucket batch, the 32-image 512^2 batch and
+     the noisy diagram's overflow rerun, and at seeded edge cases (ties at
+     min_dist, more acceptances than max_out, empty planes, K = 8192), with
+     its bound and its latency floor (dependent steps);
   3. direction_bins and pixel_steps over all 2041^2 Sobel gradient pairs,
      CUDA against CPU, exactly equal; direction_bins also at 48, 63, 66,
      127 and 254 bins;
@@ -38,7 +43,8 @@ Phases, each printing one line or a few:
      detect_board_auto of its image in every field, detect_board_auto equal
      to native detect_board at margins 0 and >= 3; a sub-batch of 3 equal
      to its CPU run; launch counts that do not grow with B (2 K1, 2 K2,
-     1 K3, plus 2 K2 and 1 K3 with the overflow rerun); the CLI's --batch;
+     1 K3 and 1 greedy, plus 2 K2, 1 K3 and 1 greedy with the overflow
+     rerun); the CLI's --batch;
      detect_board_batch on 32 512^2 diagrams; warm img/s and stage times of
      both batches and of the 16 images through detect_board and
      detect_board_auto one by one.
@@ -60,7 +66,16 @@ Phases, each printing one line or a few:
      worker threads) equal to the one-device batches in every field,
      feed_and_detect over the JPEGs equal to detect_board_auto of each
      decoded image, and warm img/s of each beside its one-device batch;
-  6. every kernel launched by each path's counted run (detect_board and
+  5e. (run right after phase 5) the post stage, one pass over a batch, at
+     the recorded inputs of the 768^2 detect_board, the 16-image bucket
+     batch and the 32-image 512^2 batch: a warm pass and a warm greedy_min_dist
+     call make no host synchronisation (torch.cuda.set_sync_debug_mode
+     "error"), the pass's warm wall and CUDA-event time beside the post
+     stage's time from timings=, and the host synchronisations of one warm
+     detect_board and one warm 16-image batch counted by their sites
+     ("warn");
+  6. every kernel (the greedy one too) launched by each path's counted run
+     (detect_board and
      its config variants, hough_circles_gradient,
      detect_board_bucket_batch, detect_board_batch, DetectSession.process,
      the sharded detectors, feed_and_detect; counts set to 0 just before
@@ -68,9 +83,10 @@ Phases, each printing one line or a few:
   7. torch.profiler over each kernel's main-path call, the single image's
      other cases (K1's outer Canny, K2's 3x3 case and both K2 cases at
      max_r 60), its batch cases and the r = 0 cases of K2 and K3 (K3: each
-     of its cases): its launches
+     of its cases; the greedy kernel: each of its cases): its launches
      and device reads per call (K1 must be one kernel launch and one device
-     read, K3 one launch and no device read) and its device time;
+     read, K3 and the greedy kernel one launch and no device read) and its
+     device time;
   8. the device busy share of one warm 16-image batch (profiler), then
      K1's main-path profile once more (logged only);
   9. the per-offset accumulator (radius span 31) and the cascade (30) on
@@ -81,7 +97,8 @@ Phases, each printing one line or a few:
 Then one JSON line with each kernel's launches (by path), error, times and
 bound (K2 and K3 at r = 0 in rows of their own), one with the batch
 throughputs (the sharded ones included), the config variants' walls and the
-accumulators' device times, one with
+accumulators' device times, one with the post stage's times and the host
+synchronisations (phase 5e), one with
 the session's and the loader's numbers, the card's name and power limit,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -192,6 +209,75 @@ def staircase_plane(rng, H, W):
     return strong & cand, cand
 
 
+def greedy_cases(seed=SEED + 40):
+    """Seeded greedy_min_dist inputs that reach its edge cases, as numpy
+    [(label, ys, xs, live, min_dist, max_out)] with ys, xs int64 [P, K]:
+    ties at exactly min_dist (lattice neighbours, and (6, 8) offsets at
+    min_dist 10) beside duplicates at distance 0; more acceptances than
+    max_out, with later duplicates of the unstored ones; a plane with no
+    live candidate, live candidates after dead ones and only the last slot
+    live; the overflow rerun's K = 8192 with long live prefixes; random
+    lists at the base pass's [8, 1024]."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    # ties: a 10-px lattice, each point also at (+6, +8), some repeated
+    P, K = 3, 96
+    g = np.arange(6) * 10 + 40
+    pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    ys = np.empty((P, K), np.int64)
+    xs = np.empty((P, K), np.int64)
+    for p in range(P):
+        cand = np.concatenate([pts, pts[:24] + [6, 8], pts[rng.integers(0, 36, 36)]])
+        cand = cand[rng.permutation(len(cand))][:K]
+        ys[p], xs[p] = cand[:, 0], cand[:, 1]
+    cases.append(("ties at min_dist, duplicates", ys, xs,
+                  np.ones((P, K), bool), 10.0, 384))
+    # a 12-px lattice of 400 points, max_out 64: acceptances 64+ are
+    # reported but block nothing, so their later duplicates are taken too
+    g = np.arange(20) * 12 + 5
+    pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    dup = pts[rng.integers(64, 400, 112)]
+    cand = np.concatenate([pts, dup])
+    ys = np.stack([cand[:, 0], cand[::-1, 0]])
+    xs = np.stack([cand[:, 1], cand[::-1, 1]])
+    cases.append(("more than max_out", ys, xs, np.ones(ys.shape, bool),
+                  10.0, 64))
+    # no live candidate; live after dead; only the last slot live
+    P, K = 4, 128
+    ys = rng.integers(0, 120, (P, K))
+    xs = rng.integers(0, 120, (P, K))
+    live = np.zeros((P, K), bool)
+    live[1] = rng.random(K) < 0.5
+    live[2, -1] = True
+    live[3, 40:] = True
+    cases.append(("empty plane, gaps, last slot", ys, xs, live, 10.0, 384))
+    # the overflow rerun's budget: dense candidates, long live prefixes
+    P, K = 3, 8192
+    ys = rng.integers(0, 256, (P, K))
+    xs = rng.integers(0, 256, (P, K))
+    live = np.arange(K)[None, :] < np.array([[K], [5000], [0]])
+    cases.append(("K = 8192", ys, xs, live, 10.0, 384))
+    # the base pass's shape at a 768^2 plane
+    P, K = 8, 1024
+    ys = rng.integers(0, 768, (P, K))
+    xs = rng.integers(0, 768, (P, K))
+    live = np.arange(K)[None, :] < rng.integers(0, K + 1, (P, 1))
+    cases.append(("random [8, 1024]", ys, xs, live, 10.0, 384))
+    return cases
+
+
+def small_images():
+    """detect_board_batch's 32 512^2 diagrams: ((images [B, H, W, 3], line
+    thresholds), [planted stones])."""
+    from img2sgf_tpu_torch import choose_line_threshold
+
+    small = [render_diagram(size=SMALL, n=SMALL_LINES, n_stones=SMALL_STONES,
+                            seed=SMALL_SEED + i) for i in range(SMALL_B)]
+    return ((np.stack([im for im, _ in small]),
+             [choose_line_threshold(SMALL, SMALL)] * SMALL_B),
+            [stones for _, stones in small])
+
+
 def batch_images():
     """The batch path's 16 diagrams: [(rgb, planted stones)]."""
     return [render_diagram(size=size, seed=seed) for size, seed in BATCH]
@@ -215,10 +301,11 @@ def bucket(imgs):
 
 @contextlib.contextmanager
 def recording():
-    """Record the arguments of every K1, K2 and K3 wrapper call made through
-    the pipeline's own references to them: yields {"K1": [(args, kwargs)],
-    "K2": [...], "K3": [...], "threads": {"K1": {idents}, ...}}, "threads"
-    holding the idents of the threads that made each kernel's calls."""
+    """Record the arguments of every K1, K2, K3 and greedy-kernel wrapper
+    call, and of every post-stage pass, made through the pipeline's own
+    references to them: yields {"K1": [(args, kwargs)], "K2": [...], "K3":
+    [...], "G": [...], "post": [...], "threads": {"K1": {idents}, ...}},
+    "threads" holding the idents of the threads that made each call."""
     import importlib
     import threading
 
@@ -227,7 +314,10 @@ def recording():
     targets = [(mod("img2sgf_tpu_torch.ops.canny"), "hysteresis_packed", "K1"),
                (mod("img2sgf_tpu_torch.hough.circles"), "exact_rescore", "K2"),
                (mod("img2sgf_tpu_torch.pipeline.detect"), "radius_support_pool",
-                "K3")]
+                "K3"),
+               (mod("img2sgf_tpu_torch.hough.circles"), "greedy_min_dist", "G"),
+               (mod("img2sgf_tpu_torch.pipeline.detect"), "_post_circles",
+                "post")]
     calls = {k: [] for _, _, k in targets}
     threads = calls["threads"] = {k: set() for _, _, k in targets}
     saved = [(m, name, getattr(m, name)) for m, name, _ in targets]
@@ -394,6 +484,10 @@ def k3_work(emask, ys, xs, want, min_r, max_r):
     return nbytes, K3_OPS_PER_WINDOW_PIXEL * n_in + K3_OPS_PER_EDGE * n_edge
 
 
+# the wrappers and the stage that recording() records
+CALLS = ("K1", "K2", "K3", "G", "post")
+
+
 def main_path_calls(dev, rgb, cfg):
     """The K1, K2 and K3 wrapper arguments of one detect_board run on the
     768^2 diagram (recording)."""
@@ -402,9 +496,9 @@ def main_path_calls(dev, rgb, cfg):
 
     with recording() as calls:
         detect_board(rgb, cfg, choose_line_threshold(*rgb.shape[:2]), device=dev)
-    if [len(calls[k]) for k in ("K1", "K2", "K3")] != [2, 2, 1]:
+    if [len(calls[k]) for k in CALLS] != [2, 2, 1, 1, 1]:
         raise AssertionError("the 768^2 main path's kernel calls: "
-                             f"{ {k: len(calls[k]) for k in ('K1', 'K2', 'K3')} }")
+                             f"{ {k: len(calls[k]) for k in CALLS} }")
     return calls
 
 
@@ -456,9 +550,9 @@ def batch_kernel_cases(dev, cfg, batch, rate):
     canvases, hs, ws, ths = bucket([im for im, _ in batch])
     with recording() as calls:
         detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
-    if [len(calls[k]) for k in ("K1", "K2", "K3")] not in ([2, 2, 1], [2, 4, 2]):
+    if [len(calls[k]) for k in CALLS] not in ([2, 2, 1, 1, 1], [2, 4, 2, 2, 1]):
         raise AssertionError("the batch's kernel calls: "
-                             f"{ {k: len(calls[k]) for k in ('K1', 'K2', 'K3')} }")
+                             f"{ {k: len(calls[k]) for k in CALLS} }")
     out = {"K1": [], "K2": [], "K3": []}
     for name, ((e0, g, iters), _) in zip(("outer", "internal"), calls["K1"]):
         label = (f"batch {name} canny [" + ",".join(map(str, e0.shape)) + "]")
@@ -480,7 +574,7 @@ def batch_kernel_cases(dev, cfg, batch, rate):
             f"sweeps (plain loop the same), call {ms:.3f} ms, plain {pms:.3f} "
             f"ms, bound {b_ms * 1e3:.2f} us ({b_by})")
     out.update(recorded_k2_k3_cases(calls, "batch", rate))
-    return out
+    return out, calls
 
 
 def recorded_k2_k3_cases(calls, prefix, rate):
@@ -529,11 +623,14 @@ def recorded_k2_k3_cases(calls, prefix, rate):
     return out
 
 
-def phase_kernels(dev, rgb, cfg, batch):
+def phase_kernels(dev, rgb, cfg, batch, small):
     """Phase 2: each kernel against its plain version on the card, with the
     call's time, the plain version's, and the roofline bound; at the
     single-image path's shapes and at the batch path's
-    (batch_kernel_cases)."""
+    (batch_kernel_cases); the greedy kernel also at the 512^2 batch's
+    inputs (small: its images and thresholds) and the overflow rerun's.
+    Returns (results by kernel, the recorded calls of the 768^2 main path,
+    the bucket batch and the 512^2 batch)."""
     import torch
 
     from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
@@ -667,7 +764,7 @@ def phase_kernels(dev, rgb, cfg, batch):
     # --- the batch path's own inputs; the single-image main case stays
     # first, then the single image's other cases that phase 7 profiles (the
     # outer Canny, K2's 3x3 patches and both at max_r 60)
-    batched = batch_kernel_cases(dev, cfg, batch, rate)
+    batched, bcalls = batch_kernel_cases(dev, cfg, batch, rate)
     outer = dict(k1[0], call=lambda: hyst.hysteresis_packed(*cases[0][1:]))
     results["K1"]["cases"] = [dict(label="internal canny (main path)",
                                    call=results["K1"]["call"]),
@@ -679,31 +776,116 @@ def phase_kernels(dev, rgb, cfg, batch):
     for k in results:
         results[k]["err"] = max([results[k]["err"]]
                                 + [c["err"] for c in batched[k]])
-    return results
+
+    # --- the greedy kernel at the recorded inputs of the 768^2 main path,
+    # the 16-image bucket batch, the 32-image 512^2 batch and the noisy
+    # diagram's overflow rerun, then at the seeded edge cases
+    from img2sgf_tpu_torch.pipeline import detect_board, detect_board_batch
+
+    sbatch, sths = small
+    with recording() as scalls:
+        detect_board_batch(sbatch, cfg, sths, device=dev)
+    with recording() as ocalls:
+        detect_board(noisy_diagram(), cfg, 30, device=dev)
+    if len(scalls["G"]) != 1 or len(ocalls["G"]) != 2:
+        raise AssertionError("greedy calls of the 512^2 batch and the noisy "
+                             f"diagram: {len(scalls['G'])}, {len(ocalls['G'])}")
+    recorded = [(f"{SIZE}^2 main path", calls["G"][0][0])] + [
+        (f"bucket batch B={len(batch)}" + (" overflow rerun" if j else ""), a)
+        for j, (a, _) in enumerate(bcalls["G"])] + [
+        (f"{SMALL}^2 batch B={SMALL_B}", scalls["G"][0][0]),
+        ("noisy 256^2 overflow rerun", ocalls["G"][1][0])]
+    seeded = [(f"seeded: {label}",
+               (*(torch.from_numpy(a).to(dev) for a in (ys_, xs_, live_)),
+                md, mo))
+              for label, ys_, xs_, live_, md, mo in greedy_cases()]
+    g = [greedy_case(label, args) for label, args in recorded + seeded]
+    results["G"] = dict(g[0], err=max(c["err"] for c in g), cases=g)
+    return results, dict(single=calls, bucket=bcalls, small=scalls)
+
+
+# Roofline of the greedy kernel: the published H100 SXM float32 rate outside
+# the tensor cores (NVIDIA data sheet), and its float32 operations per
+# distance test: two differences, two squares, their sum and the compare.
+F32_FLOPS_PER_S = 67e12
+GREEDY_OPS_PER_TEST = 6
+
+
+def greedy_work(ys, xs, live, accepted, max_out):
+    """(bytes, operations, dependent steps) of the greedy selection on these
+    inputs and its result `accepted`. Bytes: live read and accepted written
+    at every slot, ys and xs read at the live candidates alone. Operations:
+    a distance test of each live candidate against each position stored
+    before it (the acceptances before it, at most max_out). Steps: the
+    largest live length (last live index + 1) of a plane, the chain of
+    dependent steps that bounds its latency from below."""
+    import torch
+
+    P, K = live.shape
+    n_live = int(live.sum())
+    nbytes = 2 * P * K + (ys.element_size() + xs.element_size()) * n_live
+    acc = accepted.to(torch.int64)
+    stored = (acc.cumsum(-1) - acc).clamp(max=max_out)
+    ops = GREEDY_OPS_PER_TEST * int(torch.where(live, stored, 0).sum())
+    idx = torch.arange(1, K + 1, device=live.device)
+    steps = int(torch.where(live, idx, 0).amax()) if live.numel() else 0
+    return nbytes, ops, steps
+
+
+def greedy_case(label, args):
+    """The greedy kernel against its plain version at args (ys, xs, live,
+    min_dist, max_out): exactly equal, with the call's time, the plain
+    version's and the bound."""
+    from img2sgf_tpu_torch.hough import greedy_cuda
+
+    ys, xs, live, _, max_out = args
+    label = f"{label} [{live.shape[0]},{live.shape[1]}]"
+    out_k = greedy_cuda.greedy_min_dist(*args)
+    out_p = greedy_cuda.greedy_min_dist_plain(*args)
+    err = check_equal(f"greedy {label}", out_k, out_p)
+    ms = cuda_ms(lambda: greedy_cuda.greedy_min_dist(*args), 10)
+    pms = cuda_ms(lambda: greedy_cuda.greedy_min_dist_plain(*args), 1)
+    nbytes, ops, steps = greedy_work(ys, xs, live, out_k, max_out)
+    b_ms, b_by = roofline(nbytes, ops, F32_FLOPS_PER_S)
+    log("kernels", f"greedy {label} live={int(live.sum())} "
+        f"accepted={int(out_k.sum())} ys {str(ys.dtype)[6:]}: equal, call "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms * 1e3:.4f} us ({b_by}:"
+        f" {nbytes / 1e3:.1f} kB, {ops} operations); latency floor {steps} "
+        "dependent steps")
+    return dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                err=err, steps=steps, live=int(live.sum()), bytes=nbytes,
+                operations=ops, call=lambda a=args: greedy_cuda.greedy_min_dist(*a))
 
 
 KERNEL_NAMES = {"K1": "hysteresis_kernel", "K2": "rescore_kernel",
-                "K3": "radius_kernel"}
+                "K3": "radius_kernel", "G": "greedy_kernel"}
 
 
 def profile_call(call, name, reps):
     """torch.profiler over `reps` calls: per call, the device kernels
     launched, those named `name`, and the device-to-host copies; the
-    device time of `name` per call, and the other kernels' names. A call
-    with no device events recorded fails."""
+    device time of `name` per call, and the other kernels' names. A
+    profile that records no device event at all (the profiler can drop a
+    whole cycle after a long one) is taken again, at most three times in
+    all; then the call fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not evs:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            break
+        log("profile", f"{name}: the profiler recorded no device activity "
+            f"(attempt {attempt + 1} of 3)")
+    else:
         raise AssertionError(f"{name}: the profiler recorded no device "
                              "activity, so launches per call are unchecked")
     d2h = [e for e in evs if e.name.startswith("Memcpy") and "DtoH" in e.name]
@@ -717,11 +899,11 @@ def profile_call(call, name, reps):
 
 
 def phase_profile(kernels, reps=5):
-    """Phase 6: torch.profiler over `reps` calls of each kernel's wrapper
-    at its main-path case (K3: at each of its cases): the device kernels
-    and device-to-host copies of a call, and the kernel's own device time.
-    K1 must be one kernel and one copy per call, K3 one kernel and no
-    copy."""
+    """Phase 7: torch.profiler over `reps` calls of each kernel's wrapper
+    at its main-path case (K3 and the greedy kernel: at each of their
+    cases): the device kernels and device-to-host copies of a call, and the
+    kernel's own device time. K1 must be one kernel and one copy per call,
+    K3 and the greedy kernel one kernel and no copy."""
     for k, name in KERNEL_NAMES.items():
         r = kernels[k]
         cases = r.get("cases") or [dict(label="main path", call=r["call"])]
@@ -738,8 +920,8 @@ def phase_profile(kernels, reps=5):
             if k == "K1" and (n, n_mine, n_d2h) != (1, 1, 1):
                 raise AssertionError("K1 is not one launch and one device "
                                      "read per call")
-            if k == "K3" and (n, n_mine, n_d2h) != (1, 1, 0):
-                raise AssertionError(f"K3 {label} is not one launch "
+            if k in ("K3", "G") and (n, n_mine, n_d2h) != (1, 1, 0):
+                raise AssertionError(f"{k} {label} is not one launch "
                                      "and no device read per call")
         r["kernel_ms"] = cases[0]["kernel_ms"]
 
@@ -793,11 +975,11 @@ def phase_main_path(dev, rgb, stones, cfg):
     import torch
 
     from img2sgf_tpu_torch import choose_line_threshold, to_sgf
-    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
     from img2sgf_tpu_torch.ops import hysteresis_cuda
     from img2sgf_tpu_torch.pipeline import detect_board
 
-    counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
+    counters = (hysteresis_cuda, rescore_cuda, radius_cuda, greedy_cuda)
     thr = choose_line_threshold(rgb.shape[0], rgb.shape[1])
 
     # the counted main-path run
@@ -926,6 +1108,120 @@ def phase_overflow(dev, cfg):
     return rerun_ms
 
 
+def sync_sites(fn):
+    """Run fn() once under torch.cuda.set_sync_debug_mode("warn"): the host
+    synchronisations it makes, as {"file:line function": count} of the
+    innermost frame of this repository's code under each."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(str(HERE))
+                and not f.filename.endswith("chip_smoke.py")]
+        where = (f"{os.path.relpath(ours[-1].filename, HERE)}:{ours[-1].lineno}"
+                 f" {ours[-1].name}" if ours else "outside the repository")
+        sites[where] = sites.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def no_sync(label, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation fails the check."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{label} synchronised the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_post(dev, cfg, rgb, batch, recorded, stage_ms):
+    """Phase 5e: the post stage, one pass over a batch (_post_circles) at
+    the recorded inputs of the 768^2 main path, the 16-image bucket batch
+    and the 32-image 512^2 batch: a warm pass and a warm greedy_min_dist
+    call make no host synchronisation (set_sync_debug_mode "error"); the
+    warm pass's wall (host clock to a sync) and CUDA-event time, median of
+    5, beside the post stage's ms from timings= (stage_ms), and the CUDA-
+    event ms of its erase_circles alone (mean of 5); then the host
+    synchronisations of one warm detect_board and one warm 16-image bucket
+    batch, counted by their sites (set_sync_debug_mode "warn")."""
+    import torch
+
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.hough import greedy_cuda
+    from img2sgf_tpu_torch.hough.erase import erase_circles
+    from img2sgf_tpu_torch.pipeline import detect as pdetect
+    from img2sgf_tpu_torch.pipeline import detect_board, detect_board_bucket_batch
+
+    out = {}
+    for name, calls in recorded.items():
+        (args, kw), = calls["post"]
+        B = args[0].shape[0]
+        label = {"single": f"detect_board {SIZE}",
+                 "bucket": f"bucket_batch_{SIZE}_B{B}",
+                 "small": f"batch_{SMALL}_B{B}"}[name]
+        fn = lambda a=args, k=kw: pdetect._post_circles(*a, **k)  # noqa: E731
+        fn()  # warm: the Hough vote tables are cached per shape
+        no_sync(f"post pass ({label})", fn)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[label] = dict(B=B, post_wall_ms=statistics.median(walls) * 1e3,
+                          post_event_ms=cuda_ms(fn, 5),
+                          post_stage_ms=stage_ms[label],
+                          erase_event_ms=cuda_ms(lambda a=args: erase_circles(
+                              a[1], a[2], a[3], hw=a[6]), 5))
+        log("post", f"{label}: one post pass over B={B}, no host "
+            f"synchronisation; warm wall {out[label]['post_wall_ms']:.2f} ms, "
+            f"CUDA events {out[label]['post_event_ms']:.2f} ms (median of 5); "
+            f"post stage from timings= {stage_ms[label]:.2f} ms; its erase "
+            f"alone {out[label]['erase_event_ms']:.2f} ms (CUDA events)")
+    (gargs, _), = recorded["single"]["G"]
+    no_sync("greedy_min_dist", lambda: greedy_cuda.greedy_min_dist(*gargs))
+    log("post", "a warm greedy_min_dist call: no host synchronisation")
+
+    thr = choose_line_threshold(*rgb.shape[:2])
+    canvases, hs, ws, ths = bucket([im for im, _ in batch])
+    runs = {f"detect_board {SIZE}": lambda: detect_board(rgb, cfg, thr, device=dev),
+            f"bucket_batch_{SIZE}_B{len(batch)}": lambda: detect_board_bucket_batch(
+                canvases, cfg, ths, hs, ws, device=dev)}
+    syncs = {}
+    for label, fn in runs.items():
+        fn()
+        sites = sync_sites(fn)
+        syncs[label] = dict(count=sum(sites.values()), sites=sites)
+        log("post", f"{label}: {sum(sites.values())} host synchronisations in "
+            "one warm call: " + "; ".join(f"{k} x{v}" for k, v in sites.items()))
+    out["host_syncs"] = syncs
+    return out
+
+
 # Phase 4c: config values off the default path that the JAX package runs
 # (the per-offset accumulator, r = 0 in K2 and K3, block proposals, other
 # direction-bin counts), each on the 768^2 diagram and, CUDA against CPU, on
@@ -1048,7 +1344,8 @@ def phase_accumulator(dev, rgb, cfg):
     return out
 
 
-COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda"}
+COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda",
+            "G": "greedy_cuda"}
 
 
 @contextlib.contextmanager
@@ -1058,10 +1355,11 @@ def counted(out: dict):
     the card that called a plain version fails."""
     import torch
 
-    from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
     from img2sgf_tpu_torch.ops import hysteresis_cuda
 
-    mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda}
+    mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda,
+            "G": greedy_cuda}
     for m in mods.values():
         m.launches = 0
         m.plain_calls = 0
@@ -1074,12 +1372,14 @@ def counted(out: dict):
 
 
 def check_batch_launches(launches, label):
-    """One batch makes 2 K1 calls (outer and internal Canny), 2 K2 and 1 K3,
-    plus 2 K2 and 1 K3 when a plane saturates, whatever its size."""
+    """One batch makes 2 K1 calls (outer and internal Canny), 2 K2, 1 K3
+    and 1 greedy launch, plus 2 K2, 1 K3 and 1 greedy launch when a plane
+    saturates, whatever its size."""
     k1, k2, k3 = launches["K1"], launches["K2"], launches["K3"]
-    if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3:
+    if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3 or launches["G"] != k3:
         raise AssertionError(f"{label}: launches {launches}, expected K1 2, "
-                             "K2 2 and K3 1 (plus 2 and 1 with a rerun)")
+                             "K2 2, K3 1 and G 1 (plus 2, 1 and 1 with a "
+                             "rerun)")
 
 
 def check_stones(res, i, stones, n_lines, label):
@@ -1166,7 +1466,7 @@ def phase_busy(dev, cfg, batch):
                 device_busy_share=busy_ms / wall_ms, device_events=n)
 
 
-def phase_batch(dev, cfg, batch):
+def phase_batch(dev, cfg, batch, small, small_stones):
     """Phase 5: the batch path. detect_board_bucket_batch on the 16
     diagrams (counted): every image read; each row equal to
     detect_board_auto of its image in every field; detect_board_auto equal
@@ -1275,19 +1575,14 @@ def phase_batch(dev, cfg, batch):
     log("batch", f"CLI --batch --device {dev.type} wrote {B} SGFs, each equal to "
         f"to_sgf of its batch row ({proc.stdout.strip().splitlines()[-1]})")
 
-    small = [render_diagram(size=SMALL, n=SMALL_LINES, n_stones=SMALL_STONES,
-                            seed=SMALL_SEED + i) for i in range(SMALL_B)]
-    sbatch = np.stack([im for im, _ in small])
-    from img2sgf_tpu_torch import choose_line_threshold
-
-    sths = [choose_line_threshold(SMALL, SMALL)] * SMALL_B
+    sbatch, sths = small
     launches512 = {}
     with counted(launches512):
         res512 = detect_board_batch(sbatch, cfg, sths, device=dev)
     paths[f"detect_board_batch B={SMALL_B} {SMALL}"] = launches512
     check_batch_launches(launches512, f"B={SMALL_B} batch")
     extra = sum(check_stones(res512, i, stones, SMALL_LINES, "512 batch")
-                for i, (_, stones) in enumerate(small))
+                for i, stones in enumerate(small_stones))
     log("batch", f"detect_board_batch, {SMALL_B} images {SMALL}x{SMALL}: every "
         f"image board_ready with all its planted stones ({extra} extra in "
         f"all); launches {launches512}")
@@ -1328,7 +1623,7 @@ def phase_batch(dev, cfg, batch):
             f"{t['wall_ms']:.1f} ms, median); stages (summed over the loop "
             f"for detect_board) " + ", ".join(f"{k} {v:.1f} ms"
                                               for k, v in t["stage_ms"].items()))
-    return paths, tput, (sbatch, sths)
+    return paths, tput
 
 
 # The editing session's action script (phase 5b): what a GUI user does to
@@ -1637,9 +1932,10 @@ def main() -> int:
     cfg = DetectionConfig()
     rgb, stones = render_diagram()
     batch = batch_images()
-    kernels = phase_kernels(dev, rgb, cfg, batch)
+    small, small_stones = small_images()
+    kernels, recorded = phase_kernels(dev, rgb, cfg, batch, small)
     phase_tables(dev)
-    launches, _wall, _stages = phase_main_path(dev, rgb, stones, cfg)
+    launches, _wall, main_stages = phase_main_path(dev, rgb, stones, cfg)
     rerun_ms = phase_overflow(dev, cfg)
     cfg_paths, cfg_walls, calls0 = phase_configs(dev, rgb, stones, cfg)
     hough_launches = phase_hough(dev, rgb, cfg)
@@ -1650,7 +1946,12 @@ def main() -> int:
     for k in r0:
         kernels[k]["cases"] += r0[k]
         kernels[k]["err"] = max([kernels[k]["err"]] + [c["err"] for c in r0[k]])
-    paths, tput, small = phase_batch(dev, cfg, batch)
+    paths, tput = phase_batch(dev, cfg, batch, small, small_stones)
+    post = phase_post(dev, cfg, rgb, batch, recorded, {
+        f"detect_board {SIZE}": main_stages["post"],
+        **{k: t["stage_ms"]["post"] for k, t in tput.items()
+           if k.startswith(("bucket_batch", "batch_"))}})
+    del recorded
     paths.update(cfg_paths)
     paths[f"hough_circles_gradient {SIZE}"] = hough_launches
     tput.update(cfg_walls)
@@ -1691,6 +1992,9 @@ def main() -> int:
                "img2sgf_tpu/hough/rescore_pallas.py:253"),
         "K3": ("radius_support", "img2sgf_tpu_torch/csrc/radius.cu",
                "img2sgf_tpu/hough/radius_pallas.py:119"),
+        # not a Pallas kernel: the JAX package's device fori_loop
+        "G": ("greedy_min_dist", "img2sgf_tpu_torch/csrc/greedy.cu",
+              "img2sgf_tpu/hough/circles.py:823"),
     }
     rows = []
     for k, (name, src, rep) in meta.items():
@@ -1715,6 +2019,11 @@ def main() -> int:
             row["cases"] = [{f: c[f] for f in fields + ("max_r", "wanted")}
                             for c in r["cases"]]
             row["overflow_rerun_wall_ms"] = rerun_ms
+        if k == "G":
+            row["label"], row["steps"] = r["label"], r["steps"]
+            row["cases"] = [{f: c[f] for f in fields + (
+                "steps", "live", "bytes", "operations")}
+                            for c in r["cases"]]
         rows.append(row)
     # K2 (cells 5 and 3) and K3 at circle_min_radius = 0, rows of their own
     r0_path = f"detect_board {SIZE} {MIN_R0}"
@@ -1731,6 +2040,7 @@ def main() -> int:
                 "launches_by_path": {r0_path: paths[r0_path][k]}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"throughput": tput}))
+    print(json.dumps({"post": post}))
     print(json.dumps({"session": session, "loader": loader}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

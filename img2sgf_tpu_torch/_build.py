@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each exported C function; every one returns an int, a
 # cudaError_t except for the scratch-size query
 _SIGNATURES = {
@@ -44,6 +45,8 @@ _SIGNATURES = {
     # max_r, nbins, idx64, stream -> cudaError_t, or -1: too many bins
     "img2sgf_radius": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _P),
+    # ys, xs, live, accepted, P, K, max_out, md2, idx64, stream
+    "img2sgf_greedy": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -41,17 +41,22 @@ def align_board_np(part: np.ndarray, alignment, board_size: int = 19) -> np.ndar
 
 def align_board(part, hsize, vsize, align_right: bool, align_bottom: bool,
                 board_size: int = 19):
-    """Counterpart of align_board_jnp: `part` is a [board_size, board_size]
-    tensor whose top-left [hsize, vsize] block holds the part-board; hsize
-    and vsize are 0-d tensors. Returns the full board."""
+    """Counterpart of align_board_jnp: `part` is a [..., board_size,
+    board_size] tensor whose top-left [hsize, vsize] block holds the
+    part-board; hsize and vsize are tensors of the leading (batch) dims.
+    Returns the full boards."""
     dev = part.device
     xoff = board_size - hsize if align_right else torch.zeros_like(hsize)
     yoff = board_size - vsize if align_bottom else torch.zeros_like(vsize)
     ii = torch.arange(board_size, device=dev)[:, None]
     jj = torch.arange(board_size, device=dev)[None, :]
-    src_i = ii - xoff
-    src_j = jj - yoff
-    inside = (src_i >= 0) & (src_i < hsize) & (src_j >= 0) & (src_j < vsize)
-    src_i = src_i.clamp(0, board_size - 1)
-    src_j = src_j.clamp(0, board_size - 1)
-    return torch.where(inside, part[src_i, src_j], torch.zeros_like(part[0, 0]))
+    src_i = ii - xoff[..., None, None]
+    src_j = jj - yoff[..., None, None]
+    inside = ((src_i >= 0) & (src_i < hsize[..., None, None]) & (src_j >= 0)
+              & (src_j < vsize[..., None, None]))
+    src = src_i.clamp(0, board_size - 1) * board_size \
+        + src_j.clamp(0, board_size - 1)
+    lead = part.shape[:-2]
+    flat = part.reshape(*lead, board_size * board_size)
+    moved = torch.gather(flat, -1, src.reshape(*lead, -1)).reshape(part.shape)
+    return torch.where(inside, moved, 0)

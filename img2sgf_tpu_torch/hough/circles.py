@@ -8,7 +8,9 @@ dead-chunk skipping, the counting top-k search) are replaced by the plainest
 tensor code that gives the same output. The exact-vote rescore and the
 radius histogram run through kernels K2 and K3 on the card
 (hough/rescore_cuda.py, hough/radius_cuda.py, which also hold their plain
-versions and the radius tables _hist10_tables and _hist10_scan).
+versions and the radius tables _hist10_tables and _hist10_scan), and the
+greedy minimum-distance selection, a device loop in the JAX package,
+through a kernel of its own (hough/greedy_cuda.py).
 
 The single-image functions of the JAX package's diagnostic tools
 (circle_plane_state, circle_propose, vote_accumulator,
@@ -29,6 +31,7 @@ from ..ops.canny import canny_pool
 from ..ops.common import border_remap, shift2d
 from ..ops.sobel import sobel3
 from . import _bin_exceptions as _bx
+from .greedy_cuda import greedy_min_dist
 from .radius_cuda import radius_support_pool
 from .rescore_cuda import exact_rescore
 
@@ -610,41 +613,6 @@ def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
         ys_all, xs_all, votes_all, ok_all, W, peak_budget, dedupe=True,
         dedupe_first=dedupe_first)
     return ys_k, xs_k, votes_k, ok_k, ring_sat | over
-
-
-def greedy_min_dist(ys, xs, live, min_dist: float, max_out: int):
-    """Sequential acceptance in the given order with centre spacing >=
-    min_dist (cv2's overlap removal), over [P, K] candidate lists.
-
-    A plain loop over the live prefix, vectorised across planes, run on the
-    host in numpy float32 (the same arithmetic as the JAX package's
-    fori_loop; coordinates are small integers, so every d^2 is exact).
-    Acceptances past max_out stop blocking, as in the JAX package: they are
-    truncated by the [max_out] output anyway. Returns accepted [P, K]."""
-    dev = ys.device
-    fy = ys.detach().cpu().numpy().astype(np.float32)
-    fx = xs.detach().cpu().numpy().astype(np.float32)
-    lv = live.detach().cpu().numpy()
-    P, K = lv.shape
-    md2 = np.float32(min_dist * min_dist)
-    accepted = np.zeros((P, K), bool)
-    far = np.float32(-(2.0 ** 30))
-    ay = np.full((P, max_out), far, np.float32)
-    ax = np.full((P, max_out), far, np.float32)
-    cnt = np.zeros(P, np.int64)
-    rows = np.arange(P)
-    last = np.where(lv.any(axis=1), K - np.argmax(lv[:, ::-1], axis=1), 0)
-    for i in range(int(last.max(initial=0))):
-        ddy = ay - fy[:, i:i + 1]
-        ddx = ax - fx[:, i:i + 1]
-        take = lv[:, i] & ~((ddy * ddy + ddx * ddx) < md2).any(axis=1)
-        store = take & (cnt < max_out)
-        slot = np.minimum(cnt, max_out - 1)
-        ay[rows[store], slot[store]] = fy[store, i]
-        ax[rows[store], slot[store]] = fx[store, i]
-        cnt += store
-        accepted[:, i] = take
-    return torch.from_numpy(accepted).to(dev)
 
 
 def _lexsort(keys):

@@ -5,8 +5,9 @@ img2sgf.py:230-255).
 The vote bin of pixel (x, y) at angle t is static: cvRound(x*cos t +
 y*sin t) + (numrho-1)//2 in float32 (OpenCV's trig tables). The tables are
 built by the same numpy code as in the JAX package; here the accumulator is
-an exact integer histogram of the edge pixels' bins (bincount) instead of
-the JAX package's row-reduction and prefix-sum decomposition.
+an exact integer histogram of the edge pixels' bins (index_add_ of 0/1
+weights, over every image of a batch at once) instead of the JAX package's
+row-reduction and prefix-sum decomposition.
 """
 
 from __future__ import annotations
@@ -68,63 +69,72 @@ def _vote_bins(H: int, W: int, angle: float, device: str):
 
 
 def hough_window_accumulator(edges_u8, angles):
-    """Full [A, numrho] f32 vote accumulator for a tuple of angles."""
-    H, W = edges_u8.shape
-    on = (edges_u8 > 0).reshape(-1)
+    """Full [..., A, numrho] f32 vote accumulator of [..., H, W] edge maps
+    (the leading dims are a batch) for a tuple of angles: per angle, one
+    index_add_ of every pixel's 0/1 weight into its vote bin of every image
+    (the images share the canvas, so the bins are one table). The counts
+    are integers below 2^24, exact in any order."""
+    H, W = edges_u8.shape[-2:]
+    lead = edges_u8.shape[:-2]
+    on = (edges_u8 > 0).reshape(-1, H * W).to(torch.float32)
     cols = []
     for a in angles:
         bins, numrho = _vote_bins(H, W, a, str(edges_u8.device))
-        cols.append(torch.bincount(bins[on], minlength=numrho)[:numrho])
-    return torch.stack(cols).to(torch.float32)
+        acc = torch.zeros((on.shape[0], numrho), dtype=torch.float32,
+                          device=on.device)
+        cols.append(acc.index_add_(1, bins, on))
+    return torch.stack(cols, dim=1).reshape(*lead, len(angles), -1)
 
 
-def local_maxima(acc, threshold: float):
-    """OpenCV findLocalMaximums: vote > threshold, > left-rho, >= right-rho,
-    > prev-angle, >= next-angle (zero-padded borders)."""
-    z = torch.zeros_like(acc[:1])
-    up = torch.cat([z, acc[:-1]], dim=0)
-    down = torch.cat([acc[1:], z], dim=0)
-    zc = torch.zeros_like(acc[:, :1])
-    left = torch.cat([zc, acc[:, :-1]], dim=1)
-    right = torch.cat([acc[:, 1:], zc], dim=1)
-    thr = torch.tensor(threshold, dtype=torch.float32, device=acc.device)
-    return (acc > thr) & (acc > left) & (acc >= right) & (acc > up) & (acc >= down)
+def local_maxima(acc, threshold):
+    """OpenCV findLocalMaximums over [..., A, numrho]: vote > threshold,
+    > left-rho, >= right-rho, > prev-angle, >= next-angle (zero-padded
+    borders). threshold: a number, or a float32 tensor of the leading
+    dims."""
+    z = torch.zeros_like(acc[..., :1, :])
+    up = torch.cat([z, acc[..., :-1, :]], dim=-2)
+    down = torch.cat([acc[..., 1:, :], z], dim=-2)
+    zc = torch.zeros_like(acc[..., :1])
+    left = torch.cat([zc, acc[..., :-1]], dim=-1)
+    right = torch.cat([acc[..., 1:], zc], dim=-1)
+    if isinstance(threshold, torch.Tensor):
+        threshold = threshold[..., None, None]
+    return (acc > threshold) & (acc > left) & (acc >= right) & (acc > up) \
+        & (acc >= down)
 
 
 def _compact(values, mask, cap: int):
-    """Masked values into a fixed-capacity prefix, order-preserving."""
-    flat_v = values.reshape(-1)
-    flat_m = mask.reshape(-1)
-    order = torch.sort((~flat_m).to(torch.uint8), stable=True).indices
-    take = order[:cap]
-    return flat_v[take], flat_m[take], flat_m.sum(dtype=torch.int32)
+    """Masked values [..., L] into a fixed-capacity prefix [..., cap],
+    order-preserving, with the mask count [...]."""
+    order = torch.sort((~mask).to(torch.uint8), dim=-1, stable=True).indices
+    take = order[..., :cap]
+    return (torch.gather(values, -1, take), torch.gather(mask, -1, take),
+            mask.sum(dim=-1, dtype=torch.int32))
 
 
-def hough_lines_intercepts(edges_u8, threshold: float, horizontal: bool,
+def hough_lines_intercepts(edges_u8, threshold, horizontal: bool,
                            angle_delta: float, max_lines: int):
-    """Line intercepts for one direction (find_lines, img2sgf.py:230-255):
-    (rho_values [max_lines] f32, valid [max_lines] bool, count i32). For the
-    vertical direction the second window's rho is negated."""
+    """Line intercepts for one direction (find_lines, img2sgf.py:230-255) of
+    [..., H, W] edge maps (the leading dims are a batch; threshold a number
+    or a float32 tensor of them): (rho_values [..., max_lines] f32, valid
+    [..., max_lines] bool, count [...] i32). For the vertical direction the
+    second window's rho is negated."""
     dev = edges_u8.device
+    lead = edges_u8.shape[:-2]
     if horizontal:
-        angles = window_angles(math.pi / 2 - angle_delta, math.pi / 2 + angle_delta)
+        windows = ((window_angles(math.pi / 2 - angle_delta,
+                                  math.pi / 2 + angle_delta), False),)
+    else:
+        windows = ((window_angles(0.0, angle_delta), False),
+                   (window_angles(math.pi - angle_delta, math.pi), True))
+    values, masks = [], []
+    for angles, negate in windows:
         acc = hough_window_accumulator(edges_u8, angles)
-        mask = local_maxima(acc, threshold)
-        numrho = acc.shape[1]
-        rho = (torch.arange(numrho, dtype=torch.float32, device=dev)
-               - (numrho - 1) * 0.5)[None, :].expand(len(angles), -1)
-        return _compact(rho, mask, max_lines)
-
-    angles1 = window_angles(0.0, angle_delta)
-    angles2 = window_angles(math.pi - angle_delta, math.pi)
-    acc1 = hough_window_accumulator(edges_u8, angles1)
-    acc2 = hough_window_accumulator(edges_u8, angles2)
-    m1 = local_maxima(acc1, threshold)
-    m2 = local_maxima(acc2, threshold)
-    numrho = acc1.shape[1]
-    rho_base = torch.arange(numrho, dtype=torch.float32, device=dev) - (numrho - 1) * 0.5
-    rho1 = rho_base[None, :].expand(len(angles1), -1)
-    rho2 = (-rho_base)[None, :].expand(len(angles2), -1)
-    values = torch.cat([rho1.reshape(-1), rho2.reshape(-1)])
-    mask = torch.cat([m1.reshape(-1), m2.reshape(-1)])
-    return _compact(values, mask, max_lines)
+        masks.append(local_maxima(acc, threshold).reshape(*lead, -1))
+        numrho = acc.shape[-1]
+        rho = torch.arange(numrho, dtype=torch.float32, device=dev) \
+            - (numrho - 1) * 0.5
+        rho = -rho if negate else rho
+        values.append(rho.repeat(len(angles)).expand(*lead, -1))
+    return _compact(torch.cat(values, dim=-1), torch.cat(masks, dim=-1),
+                    max_lines)

@@ -31,7 +31,6 @@ from ..pipeline.detect import (
     _as_images,
     _content_dims,
     _detect_batch_impl,
-    _stack,
     _thresholds,
     resolve_device,
 )
@@ -107,7 +106,7 @@ def make_sharded_detector(devices, cfg: DetectionConfig, bucketed: bool = False)
                 # theirs. Either stream waits for that work first.
                 torch.cuda.current_stream(rgb.device).wait_event(ready)
             x = _as_images(rgb, dev, 4, "[B, H, W, 3]")
-            res = _stack(_detect_batch_impl(x, cfg, ths, hw, None))
+            res = _detect_batch_impl(x, cfg, ths, hw, None)
             if stream is not None:
                 # the pool's streams do not wait for the default stream, nor
                 # it for them: the caller's thread reads (and copies to

@@ -12,9 +12,10 @@ over the pool of every image's unique planes), select (proposals,
 exact-vote rescore, recentre and ring, compaction, radius histogram,
 finalize, and one rerun of the saturated planes of every image at the
 overflow budgets), post (erasure, Hough lines, clustering, grid validation,
-classification; a Python loop over the images). PyTorch runs eagerly, so
-the overflow rerun is a plain Python branch over the saturated planes
-instead of lax.map/lax.cond.
+classification, alignment: one pass of [B, ...] tensor code, the
+counterpart of the JAX package's jax.vmap(_post_circles), which reads
+nothing back to the host). PyTorch runs eagerly, so the overflow rerun is a
+plain Python branch over the saturated planes instead of lax.map/lax.cond.
 
 Content dims (the shape-bucketed mode): a canvas whose top-left [h, w]
 block is the real image gives, inside that block, the results of detection
@@ -214,14 +215,19 @@ def _circles_pooled(st, cfg: DetectionConfig):
 
 
 def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
-                  line_threshold: float, hw=None) -> BoardResult:
-    """Erasure through board assembly (img2sgf.py:188-198, 230-576) of one
-    image; hw=(h, w) ints: content dims inside a fixed canvas."""
+                  line_thresholds, hw=None) -> BoardResult:
+    """Erasure through board assembly (img2sgf.py:188-198, 230-576) of a
+    batch in one pass, the counterpart of the JAX package's
+    jax.vmap(_post_circles): grey, edges [B, H, W] uint8, circles [B, C, 3],
+    circles_valid [B, C], line_thresholds [B] float32, hw None or (hs, ws)
+    [B] int content dims inside a fixed canvas, all on one device. Returns a
+    BoardResult with a leading [B] on every field. Every stage is tensor
+    code over the batch, and none reads a value back to the host."""
     removed = erase_circles(edges, circles, circles_valid, hw=hw)
     hvals, hvalid, _ = hough_lines_intercepts(
-        removed, line_threshold, True, cfg.angle_delta, cfg.max_lines)
+        removed, line_thresholds, True, cfg.angle_delta, cfg.max_lines)
     vvals, vlvalid, _ = hough_lines_intercepts(
-        removed, line_threshold, False, cfg.angle_delta, cfg.max_lines)
+        removed, line_thresholds, False, cfg.angle_delta, cfg.max_lines)
     hcentres, hcount = cluster_1d(hvals, hvalid, cfg.min_grid_spacing,
                                   cfg.max_grid_lines)
     vcentres, vcount = cluster_1d(vvals, vlvalid, cfg.min_grid_spacing,
@@ -231,19 +237,19 @@ def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
     valid = grid["valid"]
 
     # circle size filter (img2sgf.py:439-443), strict inequalities
-    min_cs = torch.minimum(grid["hspace"], grid["vspace"]) * 0.3
-    max_cs = torch.maximum(grid["hspace"], grid["vspace"]) * 0.65
-    cf_valid = circles_valid & (circles[:, 2] > min_cs) & (circles[:, 2] < max_cs)
-    cf_valid = cf_valid & valid
+    min_cs = (torch.minimum(grid["hspace"], grid["vspace"]) * 0.3)[:, None]
+    max_cs = (torch.maximum(grid["hspace"], grid["vspace"]) * 0.65)[:, None]
+    cf_valid = circles_valid & (circles[..., 2] > min_cs) \
+        & (circles[..., 2] < max_cs)
+    cf_valid = cf_valid & valid[:, None]
 
-    fits = valid & (grid["hsize"] <= cfg.board_size) & (grid["vsize"] <= cfg.board_size)
+    fits = valid & (grid["hsize"] <= cfg.board_size) \
+        & (grid["vsize"] <= cfg.board_size)
     ident = identify_board(grey, circles, cf_valid, grid,
                            cfg.black_stone_threshold, cfg.board_size, hw=hw)
-    zero = torch.zeros((), dtype=torch.int32, device=grey.device)
-    detected = torch.where(fits, ident["detected_board"], zero)
+    detected = torch.where(fits[:, None, None], ident["detected_board"], 0)
     full = align_board(detected, grid["hsize"], grid["vsize"], False, False,
                        cfg.board_size)
-    one = torch.ones((), dtype=torch.int32, device=grey.device)
     return BoardResult(
         board_ready=fits,
         valid_grid=valid,
@@ -251,9 +257,9 @@ def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
         detected_board=detected,
         hsize=grid["hsize"],
         vsize=grid["vsize"],
-        side_to_move=torch.where(fits, ident["side_to_move"], one),
-        num_black=torch.where(fits, ident["num_black"], zero),
-        num_white=torch.where(fits, ident["num_white"], zero),
+        side_to_move=torch.where(fits, ident["side_to_move"], 1),
+        num_black=torch.where(fits, ident["num_black"], 0),
+        num_white=torch.where(fits, ident["num_white"], 0),
         circles=circles,
         circles_valid=circles_valid,
         circles_filtered_valid=cf_valid,
@@ -308,15 +314,16 @@ def _as_images(x, dev: torch.device, ndim: int, what: str):
 
 
 def _thresholds(line_thresholds, B: int):
-    """Line thresholds as a host list of B floats."""
+    """Line thresholds, checked on the host, as a [B] float32 tensor."""
     ths = torch.as_tensor(line_thresholds).reshape(-1).tolist()
     if len(ths) != B:
         raise ValueError(f"expected {B} line thresholds, got {len(ths)}")
-    return ths
+    return torch.tensor(ths, dtype=torch.float32)
 
 
 def _content_dims(hs, ws, B: int, H: int, W: int):
-    """Content dims as host lists of B ints in [1, H] and [1, W]."""
+    """Content dims, checked on the host to be B ints in [1, H] and [1, W],
+    as two [B] int64 tensors."""
     hs = [int(v) for v in torch.as_tensor(hs).reshape(-1).tolist()]
     ws = [int(v) for v in torch.as_tensor(ws).reshape(-1).tolist()]
     if len(hs) != B or len(ws) != B:
@@ -325,14 +332,17 @@ def _content_dims(hs, ws, B: int, H: int, W: int):
     bad = [(h, w) for h, w in zip(hs, ws) if not (1 <= h <= H and 1 <= w <= W)]
     if bad:
         raise ValueError(f"content dims {bad} do not fit the {H}x{W} canvas")
-    return hs, ws
+    return (torch.tensor(hs, dtype=torch.int64),
+            torch.tensor(ws, dtype=torch.int64))
 
 
 def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
-                       timings: dict | None):
-    """The four stages over rgb [B, H, W, 3] uint8 on its device.
-    line_thresholds: B floats; hw: None or (hs, ws) host lists of B ints.
-    Returns the B per-image BoardResults.
+                       timings: dict | None) -> BoardResult:
+    """The four stages over rgb [B, H, W, 3] uint8 on its device, each once
+    for the whole batch. line_thresholds: [B] float32 (_thresholds); hw:
+    None or (hs, ws), [B] int64 (_content_dims); both on the host or on
+    rgb's device. Returns the BoardResult with a leading [B] on every
+    field.
 
     timings: if a dict is given, the device is synchronised after each
     stage and the stage wall times (seconds) are stored under "pre",
@@ -349,8 +359,11 @@ def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
             timings[name] = now - t
             t = now
 
-    hwb = None if hw is None else tuple(
-        torch.tensor(v, dtype=torch.int64, device=dev) for v in hw)
+    # CUDA stages a pageable host-to-device copy before the call returns,
+    # so these copies need not wait for the device
+    ths = line_thresholds.to(dev, non_blocking=True)
+    hwb = None if hw is None else tuple(v.to(dev, non_blocking=True)
+                                        for v in hw)
     grey, edges, variants = _pre_circles(rgb, cfg, hwb)
     keep, expand = _variant_dedup(cfg, variants.shape[1])
     Vu = len(keep)
@@ -363,17 +376,14 @@ def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
     vcircles = vcircles_u.reshape(B, Vu, -1, 3)[:, expand].reshape(B, -1, 3)
     vvalid = vvalid_u.reshape(B, Vu, -1)[:, expand].reshape(B, -1)
     mark("select")
-    rows = [_post_circles(grey[i], edges[i], vcircles[i], vvalid[i], cfg,
-                          float(line_thresholds[i]),
-                          None if hw is None else (hw[0][i], hw[1][i]))
-            for i in range(B)]
+    res = _post_circles(grey, edges, vcircles, vvalid, cfg, ths, hwb)
     mark("post")
-    return rows
+    return res
 
 
-def _stack(rows) -> BoardResult:
-    """Per-image BoardResults -> one with a leading [B] on every field."""
-    return BoardResult(**{f.name: torch.stack([getattr(r, f.name) for r in rows])
+def _row(res: BoardResult, i: int) -> BoardResult:
+    """Row i of a batched BoardResult (views of its tensors)."""
+    return BoardResult(**{f.name: getattr(res, f.name)[i]
                           for f in dataclasses.fields(BoardResult)})
 
 
@@ -398,7 +408,8 @@ def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None,
     hw = None
     if content_hw is not None:
         hw = _content_dims([content_hw[0]], [content_hw[1]], 1, *rgb.shape[:2])
-    return _detect_batch_impl(rgb[None], cfg, [line_threshold], hw, timings)[0]
+    ths = _thresholds([line_threshold], 1)
+    return _row(_detect_batch_impl(rgb[None], cfg, ths, hw, timings), 0)
 
 
 # canvas-size ladder of the shape-bucketed path, as in the JAX package: one
@@ -443,7 +454,7 @@ def detect_board_batch(rgb_u8_batch, cfg: DetectionConfig, line_thresholds, *,
     dev = resolve_device(device)
     rgb = _as_images(rgb_u8_batch, dev, 4, "[B, H, W, 3]")
     ths = _thresholds(line_thresholds, rgb.shape[0])
-    return _stack(_detect_batch_impl(rgb, cfg, ths, None, timings))
+    return _detect_batch_impl(rgb, cfg, ths, None, timings)
 
 
 @torch.no_grad()
@@ -460,4 +471,4 @@ def detect_board_bucket_batch(canvases, cfg: DetectionConfig, line_thresholds,
     B, H, W = rgb.shape[:3]
     ths = _thresholds(line_thresholds, B)
     hw = _content_dims(hs, ws, B, H, W)
-    return _stack(_detect_batch_impl(rgb, cfg, ths, hw, timings))
+    return _detect_batch_impl(rgb, cfg, ths, hw, timings)

@@ -43,7 +43,10 @@ from img2sgf_tpu_torch.pipeline import (
 )
 from img2sgf_tpu_torch.pipeline import detect as tdetect
 
-from test_torch_pipeline import OVERFLOW, TINY, _compare, _noisy_board, synth_board
+from test_torch_pipeline import (
+    OVERFLOW, TINY, _compare, _noisy_board, cap_torch_threads, synth_board)
+
+cap_torch_threads()
 
 jcanny = importlib.import_module("img2sgf_tpu.ops.canny")
 tcanny = importlib.import_module("img2sgf_tpu_torch.ops.canny")

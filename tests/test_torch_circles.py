@@ -23,9 +23,10 @@ from img2sgf_tpu.hough.radius_pallas import radius_support_pallas
 from img2sgf_tpu.hough.rescore_pallas import exact_rescore_pallas
 from img2sgf_tpu.pipeline import detect as jdetect
 
+from chip_smoke import greedy_cases
 from img2sgf_tpu_torch.config import DetectionConfig
 from img2sgf_tpu_torch.hough import circles as tc
-from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
 from img2sgf_tpu_torch.pipeline import detect as tdetect
 
 
@@ -572,6 +573,90 @@ def test_greedy_min_dist():
         want = jc.greedy_min_dist(jnp.asarray(ys[p]), jnp.asarray(xs[p]),
                                   jnp.asarray(live[p]), 10.0, max_out=8)
         _eq(got[p], want)
+
+
+GREEDY_CASES = greedy_cases()
+
+
+@pytest.mark.parametrize("case", range(len(GREEDY_CASES)),
+                         ids=[c[0] for c in GREEDY_CASES])
+def test_greedy_min_dist_edge_cases(case):
+    """The plain version against the JAX package's greedy_min_dist (jitted
+    alone, over the planes by vmap): ties at exactly min_dist, duplicates,
+    more acceptances than max_out, an empty plane, live after dead, and the
+    overflow rerun's K = 8192."""
+    _, ys, xs, live, min_dist, max_out = GREEDY_CASES[case]
+    want = jax.jit(jax.vmap(lambda y, x, lv: jc.greedy_min_dist(
+        y, x, lv, min_dist, max_out=max_out)))(ys, xs, live)
+    got = greedy_cuda.greedy_min_dist(T(ys), T(xs), T(live), min_dist, max_out)
+    _eq(got, want)
+    assert got.any(), "no case should accept nothing at all"
+
+
+def greedy_emulate(ys, xs, live, min_dist, max_out, threads):
+    """numpy emulation of csrc/greedy.cu's block walk over one plane:
+    `threads` threads, slot s of the accepted buffer owned (tested and
+    written) by thread s % threads, the live length found from the last
+    live slot, candidates staged a tile of `threads` at a time, dead ones
+    skipped, and each clash decided by an OR over the threads' own
+    tests."""
+    K = live.shape[0]
+    md2 = np.float32(min_dist * min_dist)
+    ay = np.full(max_out, np.float32(-(2.0 ** 30)), np.float32)
+    ax = ay.copy()
+    owner = np.arange(max_out) % threads
+    n_live = max((i + 1 for i in range(K) if live[i]), default=0)
+    out = np.zeros(K, bool)
+    cnt = 0
+    for base in range(0, n_live, threads):
+        ty = ys[base:base + threads].astype(np.float32)
+        tx = xs[base:base + threads].astype(np.float32)
+        tl = live[base:base + threads]
+        for k in range(min(threads, n_live - base)):
+            if not tl[k]:
+                continue
+            dy = ay - ty[k]
+            dx = ax - tx[k]
+            hit = (dy * dy + dx * dx) < md2
+            per_thread = np.bincount(owner, hit, minlength=threads) > 0
+            take = not per_thread.any()  # __syncthreads_or
+            if take and cnt < max_out:
+                ay[cnt], ax[cnt] = ty[k], tx[k]  # by thread cnt % threads
+                cnt += 1
+            out[base + k] = take
+    return out
+
+
+@pytest.mark.parametrize("threads", [128, 3])
+def test_greedy_kernel_walk_equals_plain(threads):
+    """The kernel's block walk (greedy_emulate) equals the plain version on
+    every seeded case but K = 8192 (the JAX test above covers it): at the
+    kernel's 128 threads, and at 3, where each thread owns many slots and
+    a tile ends inside every run of acceptances."""
+    for label, ys, xs, live, min_dist, max_out in GREEDY_CASES:
+        if ys.shape[1] > 1024:
+            continue
+        want = greedy_cuda.greedy_min_dist_plain(T(ys), T(xs), T(live),
+                                                 min_dist, max_out).numpy()
+        for p in range(ys.shape[0]):
+            got = greedy_emulate(ys[p], xs[p], live[p], min_dist, max_out,
+                                 threads)
+            np.testing.assert_array_equal(got, want[p], err_msg=label)
+
+
+def test_greedy_wrapper_checks():
+    ys = torch.zeros((2, 5), dtype=torch.int64)
+    live = torch.ones((2, 5), dtype=torch.bool)
+    with pytest.raises(ValueError):
+        greedy_cuda.greedy_min_dist(ys, ys, live, 10.0, 0)
+    with pytest.raises(ValueError):
+        greedy_cuda.greedy_min_dist(ys[:, :4], ys, live, 10.0, 8)
+    with pytest.raises(TypeError):
+        greedy_cuda.greedy_min_dist(ys, ys, live.int(), 10.0, 8)
+    before = greedy_cuda.launches
+    got = greedy_cuda.greedy_min_dist(ys, ys, live, 10.0, 8)  # the plain one
+    assert greedy_cuda.launches == before
+    assert got.tolist() == [[True, False, False, False, False]] * 2
 
 
 def test_wrapper_checks():

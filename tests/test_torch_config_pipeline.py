@@ -21,7 +21,9 @@ from img2sgf_tpu.pipeline import detect_board_jit
 from img2sgf_tpu_torch.config import from_jax_config
 from img2sgf_tpu_torch.pipeline import detect_board, detect_board_auto
 
-from test_torch_pipeline import TINY, _compare, synth_board
+from test_torch_pipeline import TINY, _compare, cap_torch_threads, synth_board
+
+cap_torch_threads()
 
 STONES = ((2, 3, 0), (4, 4, 255), (6, 2, 0))
 

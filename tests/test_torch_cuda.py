@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import staircase_plane
+from chip_smoke import greedy_cases, staircase_plane
 from img2sgf_tpu_torch.config import DetectionConfig
-from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
 from img2sgf_tpu_torch.ops import hysteresis_cuda
 from img2sgf_tpu_torch.ops.canny import pack_planes
 from img2sgf_tpu_torch.pipeline import detect_board, detect_board_bucket_batch
@@ -393,32 +393,76 @@ def test_sharded_detector_two_streams_equals_batch(dev):
 def test_sharded_detector_orders_its_streams(dev, monkeypatch):
     """The shards' streams wait for the caller's queued work on the images,
     and the caller reads a shard's results only once they are written: with
-    the caller's stream held back (about half a second) before it writes the
-    images, and each shard's stream held back before it stacks its rows, the
-    two-stream run still equals the one-device batch in every field."""
+    the caller's stream (not the default one) held back (about half a
+    second) before it writes the images, and each shard's stream held back
+    before it writes every row it returns, the two-stream run still equals
+    the one-device batch in every field."""
     from img2sgf_tpu_torch.parallel import make_sharded_detector, mesh
 
     cycles = 10**9
     cfg, can, _ = _two_image_pool(dev)
     hs = ws = [192, 190]
     want = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
-    stack = mesh._stack
+    impl = mesh._detect_batch_impl
 
-    def slow_stack(rows):
+    def slow_impl(*args):
+        res = impl(*args)
+        # every returned tensor holds a wrong value in every element (0
+        # where res is not 0, 1 where it is) until the shard's stream, held
+        # back, writes the right one
+        rows = {f.name: (getattr(res, f.name) == 0).to(getattr(res, f.name).dtype)
+                for f in dataclasses.fields(res)}
         torch.cuda._sleep(cycles)  # on the shard's stream
-        return stack(rows)
+        for f in dataclasses.fields(res):
+            rows[f.name].copy_(getattr(res, f.name))
+        return type(res)(**rows)
 
-    monkeypatch.setattr(mesh, "_stack", slow_stack)
+    monkeypatch.setattr(mesh, "_detect_batch_impl", slow_impl)
     run = make_sharded_detector([dev, dev], cfg, bucketed=True)
     src = torch.from_numpy(can).to(dev)
-    images = torch.full_like(src, 255)
     torch.cuda.synchronize(dev)
-    torch.cuda._sleep(cycles)  # on the caller's stream
-    images.copy_(src)
-    got = run(images, [31, 31], hs, ws)
+    # the caller works on a stream of its own: the legacy default stream
+    # would wait for the shards' streams, and they for it, unasked
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        images = torch.full_like(src, 255)
+        torch.cuda._sleep(cycles)  # on the caller's stream
+        images.copy_(src)
+        got = run(images, [31, 31], hs, ws)
     for f in dataclasses.fields(want):
         x, y = getattr(got, f.name), getattr(want, f.name)
         assert x.device == y.device and torch.equal(x, y), f.name
+
+
+GREEDY_CASES = greedy_cases()
+
+
+@pytest.mark.parametrize("case", range(len(GREEDY_CASES)),
+                         ids=[c[0] for c in GREEDY_CASES])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_greedy_equals_plain(dev, case, dtype):
+    """The greedy kernel against its plain version on the seeded edge cases
+    (ties at min_dist, duplicates, more than max_out, an empty plane, live
+    after dead, K = 8192): equal, one launch per call."""
+    _, ys, xs, live, min_dist, max_out = GREEDY_CASES[case]
+    ys, xs = (torch.from_numpy(a).to(dev, dtype) for a in (ys, xs))
+    live = torch.from_numpy(live).to(dev)
+    before = greedy_cuda.launches
+    got = greedy_cuda.greedy_min_dist(ys, xs, live, min_dist, max_out)
+    assert greedy_cuda.launches == before + 1
+    want = greedy_cuda.greedy_min_dist_plain(ys, xs, live, min_dist, max_out)
+    assert torch.equal(got, want)
+
+
+def test_greedy_large_max_out(dev):
+    """A max_out whose accepted buffer passes 48 KB of shared memory (the
+    kernel opts in to more) against the plain version."""
+    rng = np.random.default_rng(11)
+    ys = torch.from_numpy(rng.integers(0, 4000, (2, 20000))).to(dev)
+    xs = torch.from_numpy(rng.integers(0, 4000, (2, 20000))).to(dev)
+    live = torch.ones((2, 20000), dtype=torch.bool, device=dev)
+    got = greedy_cuda.greedy_min_dist(ys, xs, live, 10.0, 8000)
+    want = greedy_cuda.greedy_min_dist_plain(ys, xs, live, 10.0, 8000)
+    assert torch.equal(got, want) and int(got.sum()) > 8000
 
 
 def test_device_keyed_tables_name_the_card(dev):

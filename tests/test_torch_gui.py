@@ -16,7 +16,9 @@ from img2sgf_tpu_torch.gui import app
 from img2sgf_tpu_torch.gui.session import DetectSession
 from img2sgf_tpu_torch.hostio import crop_and_rotate
 from test_narration import AXIS_CASES, _oracle_axis_log
-from test_torch_pipeline import synth_board
+from test_torch_pipeline import cap_torch_threads, synth_board
+
+cap_torch_threads()
 
 
 def _port_axis_log(coords):

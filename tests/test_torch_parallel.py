@@ -63,7 +63,10 @@ from img2sgf_tpu_torch.parallel import (  # noqa: E402
 from img2sgf_tpu_torch.pipeline import (  # noqa: E402
     detect_board_batch, detect_board_bucket_batch)
 from test_torch_bucketed import BUCKET_IMGS, _canvas, _tcfg  # noqa: E402
-from test_torch_pipeline import TINY, _compare, synth_board  # noqa: E402
+from test_torch_pipeline import (  # noqa: E402
+    TEST_THREADS, TINY, _compare, cap_torch_threads, synth_board)
+
+cap_torch_threads()
 
 CPU2 = ["cpu", "cpu"]
 
@@ -260,7 +263,9 @@ def test_feed_two_processes(tmp_path):
     listfile = tmp_path / "files.txt"
     listfile.write_text("\n".join(files) + "\n")
 
-    env = {**os.environ, "WORLD_SIZE": "2", "PYTHONPATH": str(REPO)}
+    # the workers run this file as a script: they take the cap from here
+    env = {**os.environ, "WORLD_SIZE": "2", "PYTHONPATH": str(REPO),
+           "OMP_NUM_THREADS": str(TEST_THREADS)}
     procs = [subprocess.Popen(
         [sys.executable, __file__, str(listfile), str(h), str(w),
          str(tmp_path / f"rank{r}.npz")],

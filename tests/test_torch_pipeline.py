@@ -21,6 +21,23 @@ from img2sgf_tpu_torch.config import DetectionConfig, from_jax_config
 from img2sgf_tpu_torch.core import to_sgf
 from img2sgf_tpu_torch.pipeline import BoardResult, detect_board
 
+# torch intra-op threads of a test process that runs the detector
+TEST_THREADS = 2
+
+
+def cap_torch_threads():
+    """Cap torch's intra-op threads in this process at TEST_THREADS (worker
+    threads, such as the sharded detector's, take the cap up at their first
+    op). Each port test module that runs the detector calls this when it is
+    imported: a team of every core in each of the six processes of the
+    tier-1 command makes the teams' spinning threads starve each other (on
+    an 8-core machine that command took 769 s with such teams, 188-224 s
+    with two threads a process)."""
+    torch.set_num_threads(min(TEST_THREADS, torch.get_num_threads()))
+
+
+cap_torch_threads()
+
 # the JAX package's pipeline smoke-test configuration (tests/test_pipeline_
 # smoke.py), copied: small budgets, one compiled budget branch on the CPU
 TINY = JaxConfig(

@@ -1,13 +1,15 @@
-"""chip_smoke.py's roofline work counts (k2_walk_steps, k2_bytes, k3_work)
-against brute-force loops over small seeded inputs: each kernel's bound
-counts only the pixels and steps its inputs need."""
+"""chip_smoke.py's roofline work counts (k2_walk_steps, k2_bytes, k3_work,
+greedy_work) against brute-force loops over small seeded inputs: each
+kernel's bound counts only the pixels, steps and candidates its inputs
+need."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k2_bytes, k2_walk_steps, k3_work
-from img2sgf_tpu_torch.hough import radius_cuda, rescore_cuda
+from chip_smoke import (
+    GREEDY_OPS_PER_TEST, greedy_work, k2_bytes, k2_walk_steps, k3_work)
+from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
 
 T = torch.from_numpy
 
@@ -91,3 +93,42 @@ def test_k3_work_disk(seed):
     assert bmap[(win * win) // 2] >= 0
     assert k3_work(T(emask), T(ys), T(xs), T(want), 0, 5) == \
         _k3_brute(emask, ys, xs, want, 0, 5)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_greedy_work(dtype):
+    """Bytes: live read and accepted written at every slot, ys and xs read
+    at the live candidates alone; operations: a test of each live
+    candidate against each position stored before it (at most max_out);
+    steps: the largest live length (last live index + 1) of a plane, live
+    or not in between."""
+    _, ys, xs, live = _inputs(7, dtype, K=9)
+    live[1] = False
+    live[2, -1] = True
+    ys[0, :] = 4 * np.arange(9)  # one plane that accepts past max_out
+    xs[0, :] = 0
+    live[0, :] = True
+    max_out, md2 = 3, np.float32(9.0)
+    P, K = live.shape
+    accepted = np.zeros_like(live)
+    tests = 0
+    for p in range(P):
+        stored = []
+        for k in range(K):
+            if not live[p, k]:
+                continue
+            tests += len(stored)
+            if all(np.float32(ys[p, k] - a) ** 2 + np.float32(xs[p, k] - b) ** 2
+                   >= md2 for a, b in stored):
+                accepted[p, k] = True
+                if len(stored) < max_out:
+                    stored.append((ys[p, k], xs[p, k]))
+    steps = max((k + 1 for p in range(P) for k in range(K) if live[p, k]),
+                default=0)
+    want = (2 * P * K + 2 * ys.itemsize * len(_slots(live)),
+            GREEDY_OPS_PER_TEST * tests, steps)
+    assert accepted[0].sum() > max_out
+    assert torch.equal(greedy_cuda.greedy_min_dist_plain(
+        T(ys), T(xs), T(live), 3.0, max_out), T(accepted))
+    assert greedy_work(T(ys), T(xs), T(live), T(accepted), max_out) == want
+    assert want[2] == K

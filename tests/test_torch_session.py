@@ -23,7 +23,9 @@ from img2sgf_tpu_torch.config import from_jax_config
 from img2sgf_tpu_torch.core import Alignment, BoardStates
 from img2sgf_tpu_torch.gui.session import DetectSession
 from test_session import _fake_result, _reference_select_region_oracle
-from test_torch_pipeline import TINY, synth_board
+from test_torch_pipeline import TINY, cap_torch_threads, synth_board
+
+cap_torch_threads()
 
 # 147 px (the 160 bucket), 7 lines, a black and a white stone in the corner
 # the script zooms onto and one stone outside it
