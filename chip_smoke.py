@@ -84,22 +84,41 @@ Phases, each printing one line or a few:
      other cases (K1's outer Canny, K2's 3x3 case and both K2 cases at
      max_r 60), its batch cases and the r = 0 cases of K2 and K3 (K3: each
      of its cases; the greedy kernel: each of its cases): its launches
-     and device reads per call (K1 must be one kernel launch and one device
-     read, K3 and the greedy kernel one launch and no device read) and its
+     and device reads per call (K1, K3 and the greedy kernel must each be
+     one kernel launch and no device read) and its
      device time;
   8. the device busy share of one warm 16-image batch (profiler), then
      K1's main-path profile once more (logged only);
   9. the per-offset accumulator (radius span 31) and the cascade (30) on
      the 768^2 diagram's 8 planes under torch.profiler: wall and device
-     busy time (last: profiles of thousands of launches before phase 7 made
-     its first profile record no device event).
+     busy time (profiles of thousands of launches before phase 7 made
+     its first profile record no device event);
+  10. (run after phase 5d) the captured CUDA graphs of the jitted entry
+     points: detect_board_auto and detect_board_jit of the 768^2 diagram
+     (and auto with the overflow rerun off: one graph, no flag read),
+     detect_board_jit of the noisy 256^2 diagram (its chunk graphs replay),
+     the 16-image bucket batch and the 32-image 512^2 batch, each graphed
+     equal to its eager segments in every field on the first call and on a
+     warm replay; the host synchronisations of a warm graphed call by site
+     (at most the one saturation-flag read); first-call and warm walls
+     (graphed and eager in turns, medians of 5), peak memory and graph
+     pool size; the session's action script graphed equal to eager;
+  11. (last) each phase-10 path's warm graphed call under torch.profiler:
+     the kernels a replay runs, counted by name (the 768^2 call must run
+     K1 twice and K2, K3 and G), its device busy share and wall.
+
+The counted runs of phase 6 drop the graph caches first: a graphed path's
+counted call is its first, whose warm-up runs the segments eagerly (one
+overflow chunk included) before the capture, which launches nothing.
 
 Then one JSON line with each kernel's launches (by path), error, times and
 bound (K2 and K3 at r = 0 in rows of their own), one with the batch
 throughputs (the sharded ones included), the config variants' walls and the
 accumulators' device times, one with the post stage's times and the host
 synchronisations (phase 5e), one with
-the session's and the loader's numbers, the card's name and power limit,
+the session's and the loader's numbers, one with phase 10-11's graph
+records (its kernel counts also in each kernel's "replay_launches"), the
+card's name and power limit,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -548,8 +567,9 @@ def batch_kernel_cases(dev, cfg, batch, rate):
     from img2sgf_tpu_torch.pipeline import detect_board_bucket_batch
 
     canvases, hs, ws, ths = bucket([im for im, _ in batch])
-    with recording() as calls:
-        detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
+    with recording() as calls:  # eager (timings=): each call's own inputs
+        detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev,
+                                  timings={})
     if [len(calls[k]) for k in CALLS] not in ([2, 2, 1, 1, 1], [2, 4, 2, 2, 1]):
         raise AssertionError("the batch's kernel calls: "
                              f"{ {k: len(calls[k]) for k in CALLS} }")
@@ -784,7 +804,7 @@ def phase_kernels(dev, rgb, cfg, batch, small):
 
     sbatch, sths = small
     with recording() as scalls:
-        detect_board_batch(sbatch, cfg, sths, device=dev)
+        detect_board_batch(sbatch, cfg, sths, device=dev, timings={})
     with recording() as ocalls:
         detect_board(noisy_diagram(), cfg, 30, device=dev)
     if len(scalls["G"]) != 1 or len(ocalls["G"]) != 2:
@@ -902,7 +922,7 @@ def phase_profile(kernels, reps=5):
     """Phase 7: torch.profiler over `reps` calls of each kernel's wrapper
     at its main-path case (K3 and the greedy kernel: at each of their
     cases): the device kernels and device-to-host copies of a call, and the
-    kernel's own device time. K1 must be one kernel and one copy per call,
+    kernel's own device time. K1 must be one kernel and no copy per call,
     K3 and the greedy kernel one kernel and no copy."""
     for k, name in KERNEL_NAMES.items():
         r = kernels[k]
@@ -917,10 +937,7 @@ def phase_profile(kernels, reps=5):
                 f"launches ({n_mine:g} of {name}), {n_d2h:g} device-to-host "
                 f"copies; {name} device time {kernel_ms:.4f} ms; other "
                 f"kernels: {others}")
-            if k == "K1" and (n, n_mine, n_d2h) != (1, 1, 1):
-                raise AssertionError("K1 is not one launch and one device "
-                                     "read per call")
-            if k in ("K3", "G") and (n, n_mine, n_d2h) != (1, 1, 0):
+            if k in ("K1", "K3", "G") and (n, n_mine, n_d2h) != (1, 1, 0):
                 raise AssertionError(f"{k} {label} is not one launch "
                                      "and no device read per call")
         r["kernel_ms"] = cases[0]["kernel_ms"]
@@ -1108,10 +1125,17 @@ def phase_overflow(dev, cfg):
     return rerun_ms
 
 
+# the overflow rerun's read of the saturation flags: an event wait, which
+# PyTorch's sync debug mode does not see, counted by the pipeline instead
+FLAG_READ_SITE = ("img2sgf_tpu_torch/pipeline/detect.py _chunks_to_run "
+                  "(saturation flags, event wait)")
+
+
 def sync_sites(fn):
     """Run fn() once under torch.cuda.set_sync_debug_mode("warn"): the host
     synchronisations it makes, as {"file:line function": count} of the
-    innermost frame of this repository's code under each."""
+    innermost frame of this repository's code under each, and the reads of
+    the saturation flags (FLAG_READ_SITE)."""
     import traceback
     import warnings
 
@@ -1129,7 +1153,10 @@ def sync_sites(fn):
                  f" {ours[-1].name}" if ours else "outside the repository")
         sites[where] = sites.get(where, 0) + 1
 
+    from img2sgf_tpu_torch.pipeline import detect
+
     torch.cuda.synchronize()
+    reads = detect.flag_reads
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = hook
@@ -1139,6 +1166,8 @@ def sync_sites(fn):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    if detect.flag_reads > reads:
+        sites[FLAG_READ_SITE] = detect.flag_reads - reads
     return sites
 
 
@@ -1352,11 +1381,18 @@ COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda",
 def counted(out: dict):
     """Set every kernel's launch count (and plain-version call count) to 0,
     run the body, then store the launch counts (by kernel) in out. A path on
-    the card that called a plain version fails."""
+    the card that called a plain version fails. The graph caches are
+    dropped first, so a path through a graphed entry point makes its first
+    call: the launches counted are its warm-up's (the eager segments, one
+    rerun chunk included); a capture launches nothing, and phase 10 counts
+    a warm replay's kernels from the profile."""
     import torch
 
     from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
     from img2sgf_tpu_torch.ops import hysteresis_cuda
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    graphs.clear()
 
     mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda,
             "G": greedy_cuda}
@@ -1374,7 +1410,8 @@ def counted(out: dict):
 def check_batch_launches(launches, label):
     """One batch makes 2 K1 calls (outer and internal Canny), 2 K2, 1 K3
     and 1 greedy launch, plus 2 K2, 1 K3 and 1 greedy launch when a plane
-    saturates, whatever its size."""
+    saturates (and in the warm-up of a graphed path's first call, which
+    runs one rerun chunk), whatever its size."""
     k1, k2, k3 = launches["K1"], launches["K2"], launches["K3"]
     if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3 or launches["G"] != k3:
         raise AssertionError(f"{label}: launches {launches}, expected K1 2, "
@@ -1906,6 +1943,220 @@ def phase_sharded(dev, cfg, batch, small, jpegs):
     return paths, tput
 
 
+@contextlib.contextmanager
+def eager_entry_points():
+    """The entry points run their segments eagerly (_detect_batch_impl,
+    with no sync between stages) instead of replaying graphs: the eager
+    side of phase 10's comparisons."""
+    from img2sgf_tpu_torch.pipeline import detect
+
+    graphed = detect._detect_batch
+    detect._detect_batch = lambda rgb, cfg, ths, hw, timings: \
+        detect._detect_batch_impl(rgb, cfg, ths, hw, timings)
+    try:
+        yield
+    finally:
+        detect._detect_batch = graphed
+
+
+def graph_paths(dev, cfg, rgb, batch, small):
+    """Phase 10's paths: {label: call} through the graphed entry points."""
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.pipeline import (
+        detect_board_auto, detect_board_batch, detect_board_bucket_batch,
+        detect_board_jit)
+
+    thr = choose_line_threshold(*rgb.shape[:2])
+    canvases, hs, ws, ths = bucket([im for im, _ in batch])
+    sbatch, sths = small
+    noisy = noisy_diagram()
+    off = cfg.replace(overflow_center_candidates=0)
+    return {
+        f"detect_board_auto {SIZE}": lambda: detect_board_auto(
+            rgb, cfg, thr, device=dev),
+        f"detect_board_jit {SIZE}": lambda: detect_board_jit(
+            rgb, cfg, thr, device=dev),
+        f"detect_board_auto {SIZE} overflow off": lambda: detect_board_auto(
+            rgb, off, thr, device=dev),
+        "detect_board_jit noisy 256 (overflow chunks)": lambda: detect_board_jit(
+            noisy, cfg, 30, device=dev),
+        f"detect_board_bucket_batch B={len(batch)} {canvases.shape[1]}":
+            lambda: detect_board_bucket_batch(canvases, cfg, ths, hs, ws,
+                                              device=dev),
+        f"detect_board_batch B={len(sths)} {SMALL}": lambda: detect_board_batch(
+            sbatch, cfg, sths, device=dev),
+    }
+
+
+def pool_bytes(dev):
+    """Bytes of device memory in the graph pool of (dev, its current
+    stream), from the allocator's snapshot; None where the snapshot does
+    not name pools."""
+    import torch
+
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    pool = tuple(graphs.cache_for(dev).pool)
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == pool)
+
+
+def phase_graphs(dev, cfg, rgb, batch, small):
+    """Phase 10: the captured CUDA graphs of the jitted entry points. Each
+    path's graphed call (first: warm-up, capture and a replay; then warm
+    replays) equals the eager segments' run in every field; the noisy
+    diagram replays its chunk graphs; the editing session's action script
+    gives the same log, boards and SGF graphed and eager. Then per path:
+    the host synchronisations of a warm graphed call by site (at most one,
+    the saturation-flag read; none with the overflow rerun off), the
+    first call's wall (warm-up and capture) and peak memory beside the
+    eager call's, the graph pool's size, and graphed and eager warm walls
+    in turns, each the median of 5. Returns the JSON record."""
+    import torch
+
+    from img2sgf_tpu_torch.gui.session import DetectSession
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    out = {}
+    for label, fn in graph_paths(dev, cfg, rgb, batch, small).items():
+        graphs.clear()
+        with eager_entry_points():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            want = fn()
+            torch.cuda.synchronize()
+            eager_first_ms = (time.perf_counter() - t0) * 1e3
+            eager_peak = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        caps, reps = graphs.captures, graphs.replays
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        graph_peak = torch.cuda.max_memory_allocated(dev) - base
+        n_graphs, n_replays = graphs.captures - caps, graphs.replays - reps
+        compare_results(got, want, f"{label}: graphed first call vs eager")
+        compare_results(fn(), want, f"{label}: warm replay vs eager")
+        sites = sync_sites(fn)
+        seen = {k: v for k, v in sites.items() if k != FLAG_READ_SITE}
+        if seen or sum(sites.values()) > 1:
+            raise AssertionError(f"{label}: a warm graphed call synchronised "
+                                 f"the host: {sites}")
+        if "overflow off" in label and sites:
+            raise AssertionError(f"{label}: the flags were read with the "
+                                 "rerun off")
+        if "chunks" in label and n_replays < 3:
+            raise AssertionError(f"{label}: no chunk graph replayed "
+                                 f"({n_replays} replays)")
+        walls = {"graphed": [], "eager": []}
+        for _ in range(5):
+            for kind in ("graphed", "eager"):
+                ctx = eager_entry_points() if kind == "eager" \
+                    else contextlib.nullcontext()
+                with ctx:
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                walls[kind].append((time.perf_counter() - t0) * 1e3)
+        pool = pool_bytes(dev)
+        rec = dict(
+            graphs=n_graphs, replays_first_call=n_replays,
+            host_syncs=sum(sites.values()), sync_sites=sites,
+            graphed_ms=statistics.median(walls["graphed"]),
+            eager_ms=statistics.median(walls["eager"]),
+            graphed_walls_ms=walls["graphed"], eager_walls_ms=walls["eager"],
+            first_call_ms=first_ms, eager_first_call_ms=eager_first_ms,
+            first_call_peak_gb=graph_peak / 1e9, eager_peak_gb=eager_peak / 1e9,
+            pool_gb=None if pool is None else pool / 1e9)
+        out[label] = rec
+        log("graphs", f"{label}: graphed = eager in every field ({n_graphs} "
+            f"graphs, {n_replays} replays in the first call); warm graphed "
+            f"{rec['graphed_ms']:.2f} ms vs eager {rec['eager_ms']:.2f} ms "
+            f"(medians of 5, in turns); host syncs of a warm graphed call "
+            f"{rec['host_syncs']} {sites}; first call (warm-up + capture + "
+            f"replay) {first_ms:.1f} ms vs eager first {eager_first_ms:.1f} "
+            f"ms; peak {graph_peak / 1e9:.2f} GB vs eager {eager_peak / 1e9:.2f}"
+            f" GB; graph pool {rec['pool_gb']} GB")
+
+    lines_g, lines_e = [], []
+    g = session_script(DetectSession(cfg, log=lines_g.append, device=dev),
+                       rgb, lines_g)
+    with eager_entry_points():
+        e = session_script(DetectSession(cfg, log=lines_e.append, device=dev),
+                           rgb, lines_e)
+    for a, b in zip(g, e):
+        same = (a["log"] == b["log"] and a["side"] == b["side"]
+                and a["sgf"] == b["sgf"]
+                and ((a["board"] is None and b["board"] is None)
+                     or np.array_equal(a["board"], b["board"])))
+        if not same:
+            raise AssertionError(f"session after {a['action']}: graphed and "
+                                 "eager differ")
+    out["session"] = {s_["action"]: dict(graphed_ms=s_["seconds"] * 1e3,
+                                         eager_ms=t_["seconds"] * 1e3)
+                      for s_, t_ in zip(g, e)}
+    log("graphs", "session action script: log, boards, side to move and SGF "
+        "equal graphed and eager after every action; first-script ms "
+        "(graphed / eager): " + ", ".join(
+            f"{k} {v['graphed_ms']:.1f} / {v['eager_ms']:.1f}"
+            for k, v in out["session"].items()))
+    out["max_graphs_per_pool"] = graphs.MAX_GRAPHS
+    return out
+
+
+def phase_graph_profiles(dev, cfg, rgb, batch, small, reps=3):
+    """Phase 11 (last): torch.profiler over `reps` warm graphed calls of
+    each phase-10 path: the kernels one call runs, counted by name (the
+    launch counts of the wrappers do not see a replay), its device busy
+    share and wall. The 768^2 detect_board_auto call must run K1, K2, K3
+    and G. A profile that records no device event is retaken (3 tries)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in graph_paths(dev, cfg, rgb, batch, small).items():
+        fn()
+        torch.cuda.synchronize()
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / reps
+            evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if evs:
+                break
+            log("graphs", f"{label}: the profiler recorded no device "
+                f"activity (attempt {attempt + 1} of 3)")
+        else:
+            raise AssertionError(f"{label}: no device activity in 3 profiles")
+        counts = {k: sum(name in e.name for e in evs) / reps
+                  for k, name in KERNEL_NAMES.items()}
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3 / reps
+        kernel_ms = {k: sum(e.time_range.elapsed_us() for e in evs
+                            if name in e.name) / 1e3 / reps
+                     for k, name in KERNEL_NAMES.items()}
+        out[label] = dict(kernels=counts, kernel_ms=kernel_ms,
+                          device_events=len(evs) / reps, device_busy_ms=busy,
+                          profiled_wall_ms=wall, device_busy_share=busy / wall)
+        log("graphs", f"{label}: one warm graphed call under torch.profiler "
+            f"runs {counts} ({len(evs) / reps:g} device events), device busy "
+            f"{busy:.2f} of {wall:.2f} ms (share {busy / wall:.3f})")
+    main = out[f"detect_board_auto {SIZE}"]["kernels"]
+    if any(main[k] < 1 for k in KERNEL_NAMES) or main["K1"] != 2:
+        raise AssertionError(f"the graphed main path's replay ran {main}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1962,11 +2213,12 @@ def main() -> int:
     paths.update(session_paths)
     paths.update(sharded_paths)
     tput.update(sharded_tput)
+    graph_rec = phase_graphs(dev, cfg, rgb, batch, small)
     phase_profile(kernels)  # late: the profiler's hooks could slow the wall
     tput[f"bucket_batch_{SIZE}_B{len(batch)}"].update(phase_busy(dev, cfg, batch))
     # K1's profile once more, after the busy profile's ~17,600 events, for
     # the record of whether a long profile makes the next one drop events
-    # (logged, not asserted: phase 7 holds K1 to one launch and one read)
+    # (logged, not asserted: phase 7 holds K1 to one launch and no read)
     n, n_mine, n_d2h, _, _ = profile_call(kernels["K1"]["call"],
                                           KERNEL_NAMES["K1"], 5)
     log("profile", f"K1 main path after the busy profile: per call {n:g} "
@@ -1975,6 +2227,8 @@ def main() -> int:
     # last: a profile of thousands of launches has made the next profile
     # record no device event at all
     tput[f"accumulator_{SIZE}_8_planes"] = phase_accumulator(dev, rgb, cfg)
+    # after every other profile: the replays' kernels by name
+    graph_rec["profiles"] = phase_graph_profiles(dev, cfg, rgb, batch, small)
 
     names = COUNTERS
     paths = {f"detect_board {SIZE}": {k: launches[m] for k, m in names.items()},
@@ -2005,7 +2259,9 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None,
                "kernel_ms": r["kernel_ms"],
-               "launches_by_path": {p: c[k] for p, c in paths.items()}}
+               "launches_by_path": {p: c[k] for p, c in paths.items()},
+               "replay_launches": {p: v["kernels"][k] for p, v in
+                                   graph_rec["profiles"].items()}}
         fields = ("label", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
         if k == "K1":
             row["sweeps"] = r["sweeps"]
@@ -2042,6 +2298,7 @@ def main() -> int:
     print(json.dumps({"throughput": tput}))
     print(json.dumps({"post": post}))
     print(json.dumps({"session": session, "loader": loader}))
+    print(json.dumps({"graphs": graph_rec}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

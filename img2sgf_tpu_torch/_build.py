@@ -35,7 +35,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # G, H, W -> int32 words of K1's scratch buffer
     "img2sgf_hysteresis_scratch": (_I, _I, _I),
-    # edge0, edge, t, gate, scratch, G, H, W, iters, sweeps_out, stream
+    # edge0, edge, t, gate, scratch, G, H, W, iters, sweeps_out (a device
+    # int), stream
     "img2sgf_hysteresis": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # emask, sx, sy, ys, xs, nvalid, rhat, out, P, H, W, K, cells, min_r,
     # max_r, kmax, stream
@@ -54,6 +55,8 @@ _lib = None
 build_seconds = None  # wall time of the nvcc run in this process, if any
 # Held while a wrapper adds to its module's launch or plain-call count, so
 # that threads launching at once (the sharded detector's workers) lose none.
+# A call captured into a CUDA graph launches nothing and counts nothing
+# (launching()); a graph's replays are counted by torch.profiler.
 count_lock = threading.Lock()
 
 
@@ -136,6 +139,15 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = _lib.img2sgf_error_string(err).decode() if _lib else ""
         raise RuntimeError(f"{what}: CUDA error {err} {name}")
+
+
+def launching() -> bool:
+    """Whether a kernel call made now launches its kernel: not while the
+    current stream is captured into a CUDA graph, where the call records a
+    graph node that each replay launches (wrappers count launches only)."""
+    import torch
+
+    return not torch.cuda.is_current_stream_capturing()
 
 
 def stream_of(t) -> int:

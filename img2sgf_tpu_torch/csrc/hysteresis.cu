@@ -41,7 +41,10 @@
 //     __syncthreads_or per block and one atomicOr on a device flag. Two flags alternate by sweep parity, so clearing the
 //     next one never races with reading this one; every block reads the
 //     flag after the sweep's last barrier and all leave the loop together.
-// The sweep count is written to a device int and read back once per call.
+// The sweep count is written to a device int of the caller's; the call
+// reads nothing back and does not synchronise, so a CUDA graph can capture
+// it (CUDA 12 captures a cooperative launch as a kernel node). Every launch
+// clears its own flags, so a replay needs no zeroed scratch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,7 +69,8 @@ struct Args {
   const int* gate;   // [G, H, W]
   int* rsum;         // [3, G*H, nseg] row segment summaries
   int* csum;         // [3, G, nband, W] column band summaries
-  int* ctl;          // [0], [1] changed flags by sweep parity; [2] sweeps
+  int* ctl;          // [0], [1] changed flags by sweep parity
+  int* sweeps;       // [1] device int: the sweeps run
   int G, H, W, iters;
 };
 
@@ -373,7 +377,7 @@ hysteresis_kernel(Args p) {
     ++sweeps;
     if (!*(volatile int*)(p.ctl + (s & 1))) break;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) p.ctl[2] = sweeps;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *p.sweeps = sweeps;
 }
 
 constexpr size_t kSmemBytes = (size_t)kWarps * kWarpSmem * sizeof(int);
@@ -388,13 +392,14 @@ extern "C" const char* img2sgf_error_string(int err) {
 extern "C" int img2sgf_hysteresis_scratch(int G, int H, int W) {
   const int nseg = (W + kSegWords - 1) / kSegWords;
   const int nband = (H + kBand - 1) / kBand;
-  return 3 * G * H * nseg + 3 * G * nband * W + 3;
+  return 3 * G * H * nseg + 3 * G * nband * W + 2;
 }
 
 // Runs up to `iters` sweeps on edge0 ([G, H, W] int32, a subset of `gate`)
 // into `edge` in one cooperative launch. t: scratch words [G, H, W];
-// scratch: img2sgf_hysteresis_scratch(G, H, W) words. *sweeps_out (host
-// int) receives the number of sweeps run: the call's one device read.
+// scratch: img2sgf_hysteresis_scratch(G, H, W) words. sweeps_out: a device
+// int that receives the number of sweeps run. Launches on `stream` and
+// returns without waiting for the kernel.
 extern "C" int img2sgf_hysteresis(const int* edge0, int* edge, int* t,
                                   const int* gate, int* scratch, int G, int H,
                                   int W, int iters, int* sweeps_out,
@@ -427,17 +432,13 @@ extern "C" int img2sgf_hysteresis(const int* edge0, int* edge, int* t,
   a.rsum = scratch;
   a.csum = scratch + 3 * (size_t)G * H * nseg;
   a.ctl = a.csum + 3 * (size_t)G * nband * W;
+  a.sweeps = sweeps_out;
   a.G = G;
   a.H = H;
   a.W = W;
   a.iters = iters;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)hysteresis_kernel,
-                                  dim3(per_sm * sms), dim3(kThreads), args,
-                                  kSmemBytes, s);
-  if (e != cudaSuccess) return e;
-  e = cudaMemcpyAsync(sweeps_out, a.ctl + 2, sizeof(int),
-                      cudaMemcpyDeviceToHost, s);
-  if (e != cudaSuccess) return e;
-  return cudaStreamSynchronize(s);
+  return cudaLaunchCooperativeKernel((const void*)hysteresis_kernel,
+                                     dim3(per_sm * sms), dim3(kThreads), args,
+                                     kSmemBytes, s);
 }

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .._devconst import device_cache
 from ..ops.canny import canny_pool
 from ..ops.common import border_remap, shift2d
 from ..ops.sobel import sobel3
@@ -75,7 +76,7 @@ def _cascade_tables(num_bins: int, min_r: int, max_r: int, seg: int = 5):
     return inner, outer
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _bin_exceptions_on(num_bins: int, device: str):
     """The float32 bin table of one count on a device (_bin_exceptions):
     the eight ray bins [8] int32, and the other pairs as sorted keys
@@ -279,10 +280,6 @@ def top_k_desc(score, k: int):
     return torch.gather(score, -1, order), order
 
 
-def _f32(x: float, dev):
-    return torch.tensor(x, dtype=torch.float32, device=dev)
-
-
 def _content(hw, H: int, W: int, ndim: int):
     """Content dims of a pool, shaped to broadcast over [P, ...] tensors of
     `ndim` dims: the canvas (H, W) without hw, else hw's [P] tensors. OpenCV
@@ -303,7 +300,7 @@ def _block_candidates(acc, is_max, top_k: int, block: int,
     Hb, Wb = -(-H // b), -(-W // b)
     s = torch.full((P, Hb * b, Wb * b), -1.0, dtype=acc.dtype,
                    device=acc.device)
-    s[:, :H, :W] = torch.where(is_max, acc, _f32(-1.0, acc.device))
+    s[:, :H, :W] = torch.where(is_max, acc, -1.0)
     tiles = s.reshape(P, Hb, b, Wb, b).permute(0, 1, 3, 2, 4).reshape(
         P, Hb * Wb, b * b)
     bmax = tiles.amax(dim=2)
@@ -314,7 +311,7 @@ def _block_candidates(acc, is_max, top_k: int, block: int,
     xs = (bidx % Wb) * b + cell % b
     counts = (bmax.gt(0).sum(dim=1, dtype=torch.int32),)
     if margin is not None:
-        counts += ((bmax >= _f32(margin, acc.device)).sum(
+        counts += ((bmax >= margin).sum(
             dim=1, dtype=torch.int32),)
     return (ys.clamp(max=H - 1), xs.clamp(max=W - 1), votes,
             votes > 0) + counts
@@ -341,7 +338,7 @@ def centre_candidates(acc, acc_threshold: float, top_k: int,
     xs_i = torch.arange(W, device=dev)[None, :]
     interior = (ys_i >= 1) & (ys_i <= h - 2) & (xs_i >= 1) & (xs_i <= w - 2)
     is_max = (
-        (acc > _f32(acc_threshold, dev))
+        (acc > acc_threshold)
         & (acc > shift2d(acc, 0, 1))
         & (acc >= shift2d(acc, 0, -1))
         & (acc > shift2d(acc, 1, 0))
@@ -350,16 +347,16 @@ def centre_candidates(acc, acc_threshold: float, top_k: int,
     )
     if block > 1:
         if select_min is not None:
-            is_max = is_max & (acc >= _f32(select_min, dev))
+            is_max = is_max & (acc >= select_min)
         return _block_candidates(acc, is_max, top_k, block, margin)
     n_live = is_max.sum(dim=(1, 2), dtype=torch.int32)
     counts = (n_live,)
     if margin is not None:
-        counts += ((is_max & (acc >= _f32(margin, dev))).sum(
+        counts += ((is_max & (acc >= margin)).sum(
             dim=(1, 2), dtype=torch.int32),)
     if select_min is not None:
-        is_max = is_max & (acc >= _f32(select_min, dev))
-    score = torch.where(is_max, acc, _f32(-1.0, dev)).reshape(P, -1)
+        is_max = is_max & (acc >= select_min)
+    score = torch.where(is_max, acc, -1.0).reshape(P, -1)
     votes, flat, ok = top_k_set_by_count(score, top_k)
     valid = ok & (votes > 0)
     return (flat // W, flat % W, votes, valid) + counts
@@ -405,6 +402,12 @@ def circle_votes(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
 _CENTRE = np.array([i * 5 + j for i in (1, 2, 3) for j in (1, 2, 3)])
 
 
+@device_cache(maxsize=16)
+def _centre_on(device: str):
+    """_CENTRE on a device, uploaded once per card."""
+    return torch.from_numpy(_CENTRE).to(device)
+
+
 def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
                     W: int, hw=None):
     """Stage 2b: every cell of each proposal's central 3x3 that passes
@@ -423,7 +426,7 @@ def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
         raise ValueError("recentre takes 3x3 or 5x5 patches")
     dev = patch.device
     flat = patch.reshape(P, K, 25)
-    c = torch.from_numpy(_CENTRE).to(dev)
+    c = _centre_on(str(dev))
     v = flat[..., c]
     nms_ok = (
         (v > flat[..., c - 1])
@@ -437,7 +440,7 @@ def circle_recentre(patch, ys, xs, valid, acc_threshold: float, H: int,
     cx = xs[..., None].long() + offx
     h, w = _content(hw, H, W, 3)
     interior = (cy >= 1) & (cy <= h - 2) & (cx >= 1) & (cx <= w - 2)
-    ok = valid[..., None] & nms_ok & (v > _f32(acc_threshold, dev)) & interior
+    ok = valid[..., None] & nms_ok & (v > acc_threshold) & interior
     return (cy.clamp(0, H - 1).reshape(P, -1), cx.clamp(0, W - 1).reshape(P, -1),
             v.reshape(P, -1), ok.reshape(P, -1))
 
@@ -451,7 +454,7 @@ def _recentre_argmax(patch, ys, xs, valid, acc_threshold: float, H: int,
     best = flat.argmax(dim=2)  # the first maximum
     votes = torch.gather(flat, 2, best[..., None])[..., 0]
     py, px = best // 3, best % 3
-    minus1 = _f32(-1.0, patch.device)
+    minus1 = -1.0
 
     def nbr(dy, dx):
         yy, xx = py + dy, px + dx
@@ -465,7 +468,7 @@ def _recentre_argmax(patch, ys, xs, valid, acc_threshold: float, H: int,
     ys_c = (ys.long() + py - 1).clamp(0, H - 1)
     xs_c = (xs.long() + px - 1).clamp(0, W - 1)
     return (ys_c, xs_c, votes,
-            valid & (votes > _f32(acc_threshold, patch.device)) & nms_ok)
+            valid & (votes > acc_threshold) & nms_ok)
 
 
 _RING = np.array([i * 5 + j for i in range(5) for j in range(5)
@@ -484,6 +487,17 @@ def _ring_neighbours(off):
     return known, idx
 
 
+@device_cache(maxsize=16)
+def _ring_on(device: str):
+    """_RING and, for each of the four neighbour offsets of
+    provisional_ring, _ring_neighbours' (known, idx) on a device, uploaded
+    once per card."""
+    nbrs = {off: tuple(torch.from_numpy(a).to(device)
+                       for a in _ring_neighbours(off))
+            for off in ((0, -1), (0, 1), (-1, 0), (1, 0))}
+    return torch.from_numpy(_RING).to(device), nbrs
+
+
 def provisional_ring(patch, ys, xs, valid, acc_threshold: float, H: int,
                      W: int, budget: int, hw=None):
     """Outer-ring (Chebyshev-2) cells of each 5x5 patch passing the partial
@@ -492,19 +506,17 @@ def provisional_ring(patch, ys, xs, valid, acc_threshold: float, H: int,
     [P, budget] (the top-`budget` set by votes, stream order) and n_live
     [P], the count before truncation."""
     P, K = patch.shape[:2]
-    dev = patch.device
     flat = patch.reshape(P, K, 25)
-    minus1 = _f32(-1.0, dev)
+    minus1 = -1.0
+    ring, nbrs = _ring_on(str(patch.device))
 
     def nbr(off):
-        known, idx = _ring_neighbours(off)
-        vals = flat[..., torch.from_numpy(idx).to(dev)]
-        return torch.where(torch.from_numpy(known).to(dev), vals, minus1)
+        known, idx = nbrs[off]
+        return torch.where(known, flat[..., idx], minus1)
 
-    ring = torch.from_numpy(_RING).to(dev)
     v = flat[..., ring]
     ok = (
-        (v > _f32(acc_threshold, dev))
+        (v > acc_threshold)
         & (v > nbr((0, -1)))
         & (v >= nbr((0, 1)))
         & (v > nbr((-1, 0)))
@@ -555,7 +567,7 @@ def compact_candidates(ys, xs, votes, valid, W: int, budget: int,
         ks = g(key, 1, order)
         live = (ks < big) & ~_dup_of_sorted(ks)
         sat = live.sum(dim=1) > budget
-        score = torch.where(live, g(votes, 1, order), _f32(-1.0, votes.device))
+        score = torch.where(live, g(votes, 1, order), -1.0)
         top, sel2, okk = top_k_set_by_count(score, min(budget, score.shape[1]))
         sel = g(order, 1, sel2)
         return (g(ys, 1, sel), g(xs, 1, sel), g(votes, 1, sel),
@@ -595,7 +607,7 @@ def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     h, w = _content(hw, H, W, 2)
     ok_p = (
         valid_p
-        & (c > _f32(acc_threshold, c.device))
+        & (c > acc_threshold)
         & (c > patch3[:, :, 1, 0])
         & (c >= patch3[:, :, 1, 2])
         & (c > patch3[:, :, 0, 1])
@@ -631,7 +643,7 @@ def circle_finalize(ys_c, xs_c, valid2, r_best, support, acc_threshold: float,
     removal. Returns (circles [P, max_out, 3] as (cx, cy, r) with OpenCV's
     +0.5 centre offset, valid [P, max_out]) in acceptance order."""
     dev = ys_c.device
-    supported = valid2 & (support > _f32(acc_threshold, dev))
+    supported = valid2 & (support > acc_threshold)
     g = torch.gather
     if packed_sort:
         # exact for max_r <= 44 (the caller's gate), see the JAX package
@@ -644,7 +656,7 @@ def circle_finalize(ys_c, xs_c, valid2, r_best, support, acc_threshold: float,
         k2 = xs_c.to(torch.int32) * 65536 + ys_c.to(torch.int32)
         order = _lexsort((k2, -k1))
     else:
-        s_key = torch.where(supported, support, _f32(-1.0, dev))
+        s_key = torch.where(supported, support, -1.0)
         order = _lexsort((ys_c, xs_c, -r_best, -s_key))
     ys_s = g(ys_c, 1, order)
     xs_s = g(xs_c, 1, order)
@@ -656,7 +668,7 @@ def circle_finalize(ys_c, xs_c, valid2, r_best, support, acc_threshold: float,
     cx = g(xs_s, 1, keep).to(torch.float32) + 0.5
     cy = g(ys_s, 1, keep).to(torch.float32) + 0.5
     circles = torch.stack([cx, cy, g(r_s, 1, keep)], dim=-1)
-    return torch.where(out_valid[..., None], circles, _f32(0.0, dev)), out_valid
+    return torch.where(out_valid[..., None], circles, 0.0), out_valid
 
 
 def circle_plane_state_pool(planes, canny_high: float, min_r: int, max_r: int,

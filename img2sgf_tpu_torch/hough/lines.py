@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from .._devconst import device_cache
+
 
 def window_angles(min_theta: float, max_theta: float, step: float = math.pi / 180.0):
     """cv2 5.x computeNumangle: floor((max-min)/step) + 1 angles from min."""
@@ -53,7 +55,7 @@ def _angle_tables(H: int, W: int, angle: float):
     return transpose, flip, kmat, K, lo, hi, numrho
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _vote_bins(H: int, W: int, angle: float, device: str):
     """[H*W] vote bin of every pixel in image layout, on `device`:
     str(tensor.device), which names the card ("cuda:1"), so each card

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._devconst import device_cache
 
 # Counts, added to under _build.count_lock: calls that launched K3, and
 # calls of the plain version.
@@ -189,7 +190,7 @@ def _row_spans(min_r: int, max_r: int):
     return spans
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _tables_on(min_r: int, max_r: int, device: str):
     """K3's bin map and row spans on the device, uploaded once per card:
     `device` is str(tensor.device), which names the card ("cuda:1")."""
@@ -231,8 +232,9 @@ def radius_support_cuda(emask, ys, xs, want, min_r: int, max_r: int):
                 f"bins; one warp's two int32 tables ({8 * nbins} bytes) do "
                 "not fit this card's shared memory per block")
         _build.check(err, "radius kernel")
-        with _build.count_lock:
-            launches += 1
+        if _build.launching():
+            with _build.count_lock:
+                launches += 1
     return r_out, s_out
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._devconst import device_cache
 
 # Counts, added to under _build.count_lock: calls that launched K2, and
 # calls of the plain version.
@@ -124,7 +125,7 @@ def exact_rescore_plain(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     return out[:, :nc].to(torch.float32).reshape(P, K, cells, cells)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _rhat_on(min_r: int, max_r: int, cells: int, device: str):
     """K2's per-offset rhat table [win * win] int32, uploaded once per card:
     `device` is str(tensor.device), which names the card ("cuda:1")."""
@@ -155,8 +156,9 @@ def exact_rescore_cuda(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
                 rhat.data_ptr(), out.data_ptr(), P, H, W, K, cells, min_r,
                 max_r, kmax, _build.stream_of(out))
         _build.check(err, "rescore kernel")
-        with _build.count_lock:
-            launches += 1
+        if _build.launching():
+            with _build.count_lock:
+                launches += 1
     return out.reshape(P, K, cells, cells)
 
 
@@ -166,7 +168,8 @@ def exact_rescore(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
 
     emask [P, H, W] bool, sx/sy [P, H, W] int32 steps in [-1024, 1024],
     ys/xs [P, K] int centres inside the plane, valid [P, K] bool, a live
-    prefix per plane (K2 takes its length, so a mask with a gap raises).
+    prefix per plane (K2 takes its length, so a mask with a gap raises on
+    the CPU and fails a device assert on the card).
     Returns [P, K, cells, cells] f32, zero past the prefix. CPU tensors take
     the plain version; CUDA tensors launch K2.
     """
@@ -186,13 +189,25 @@ def exact_rescore(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     devs = {t.device for t in (emask, sx, sy, ys, xs, valid)}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on several devices: {devs}")
-    if bool((valid[:, 1:] & ~valid[:, :-1]).any()):
-        raise ValueError("valid must be a prefix of each plane's rows")
+    gap = (valid[:, 1:] & ~valid[:, :-1]).any()
     dev = emask.device
     if dev.type == "cpu":
+        _raise_on_gap(gap)
         return exact_rescore_plain(emask, sx, sy, ys, xs, valid, min_r,
                                    max_r, cells)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    # on the card the check reads nothing back: a gap fails a device assert
+    # (which ends the process's CUDA context) instead of raising here
+    torch._assert_async(~gap, _GAP)
     return exact_rescore_cuda(emask, sx, sy, ys, xs, valid, min_r, max_r,
                               cells)
+
+
+_GAP = "valid must be a prefix of each plane's rows"
+
+
+def _raise_on_gap(gap):
+    """The CPU form of the prefix check: raise if `gap` (a bool tensor)."""
+    if bool(gap):
+        raise ValueError(_GAP)

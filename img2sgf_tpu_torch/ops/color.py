@@ -12,9 +12,10 @@ bits on every device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .common import region_mask
+from .common import long_on, region_mask
 
 
 def pil_luma(rgb_u8):
@@ -31,16 +32,24 @@ def grey_bgr_quirk(rgb_u8):
     return g.to(torch.uint8)
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32, kept as a Python float: the float32 constant
+    of the JAX package's expression, with no upload to the device."""
+    return float(np.float32(x))
+
+
 def _fma_f32(a, b, c):
-    """float32 fused multiply-add a*b + c (float32 operands, one rounding)."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    """float32 fused multiply-add a*b + c (float32 tensors, or Python
+    floats from _f32; one rounding)."""
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) else x
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
 
 
 def _pil_blend_trunc(degenerate_f, img_f, alpha: float):
     """PIL Image.blend: in1 + alpha*(in2 - in1), clipped to [0, 255] and
     truncated (Pillow Blend.c casts to UINT8)."""
-    a = torch.tensor(alpha, dtype=torch.float32, device=img_f.device)
-    out = _fma_f32(a, img_f - degenerate_f, degenerate_f)
+    out = _fma_f32(_f32(alpha), img_f - degenerate_f, degenerate_f)
     out = out.clamp(0.0, 255.0)
     return torch.floor(out).to(torch.uint8)
 
@@ -58,19 +67,17 @@ def enhance_contrast(rgb_u8, contrast: float, hw=None):
     alpha = 102.0 / (101.0 - contrast) - 1.0
     luma = pil_luma(rgb_u8)
     dev = rgb_u8.device
-    half = torch.tensor(0.5, dtype=torch.float32, device=dev)
     if hw is None:
         total = luma.sum(dim=(-2, -1)).to(torch.float32)
-        count = torch.tensor(float(luma.shape[-2] * luma.shape[-1]),
-                             dtype=torch.float32, device=dev)
-        rcp = torch.ones((), dtype=torch.float32, device=dev) / count
-        mean = torch.floor(_fma_f32(total, rcp, half))
+        # the float32 reciprocal of the pixel count, rounded on the host as
+        # the device rounds it (IEEE division)
+        rcp = float(np.float32(1.0) / np.float32(luma.shape[-2] * luma.shape[-1]))
+        mean = torch.floor(_fma_f32(total, rcp, 0.5))
     else:
-        h = torch.as_tensor(hw[0], device=dev).long()
-        w = torch.as_tensor(hw[1], device=dev).long()
+        h, w = long_on(hw[0], dev), long_on(hw[1], dev)
         inside = region_mask(luma.shape[-2:], h, w, dev)
         total = (luma * inside).sum(dim=(-2, -1)).to(torch.float32)
-        mean = torch.floor(total / (h * w).to(torch.float32) + half)
+        mean = torch.floor(total / (h * w).to(torch.float32) + 0.5)
     return _pil_blend_trunc(mean[..., None, None, None],
                             rgb_u8.to(torch.float32), alpha)
 
@@ -79,9 +86,8 @@ def enhance_brightness(rgb_u8, brightness: float):
     """PIL ImageEnhance.Brightness with the reference's slider remap
     (img2sgf.py:146-149); the degenerate image is black."""
     alpha = 450.0 / (200.0 - brightness) - 2.0
-    a = torch.tensor(alpha, dtype=torch.float32, device=rgb_u8.device)
     # black degenerate: XLA folds 0 + alpha*(x - 0) to one multiply
-    out = (a * rgb_u8.to(torch.float32)).clamp(0.0, 255.0)
+    out = (_f32(alpha) * rgb_u8.to(torch.float32)).clamp(0.0, 255.0)
     return torch.floor(out).to(torch.uint8)
 
 

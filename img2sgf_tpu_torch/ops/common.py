@@ -12,11 +12,19 @@ from __future__ import annotations
 import torch
 
 
+def long_on(n, device):
+    """Content dim n (a Python int or an int tensor) as an int64 tensor on
+    device; a tensor already there is used as it is, with no copy."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int64)
+    return torch.tensor(n, dtype=torch.int64, device=device)
+
+
 def _lead(n, x):
     """Content dim n as an int64 tensor: 0-d for one dim, else shaped to
     broadcast over x's leading dims (x.shape[:-2]) with one trailing axis
     for the row or column."""
-    n = torch.as_tensor(n, device=x.device).long()
+    n = long_on(n, x.device)
     if n.ndim == 0:
         return n
     return n.reshape(n.shape + (1,) * (x.ndim - 1 - n.ndim))
@@ -55,8 +63,7 @@ def region_mask(shape2d, h, w, device=None):
     """Bool mask of the real-content block: [*h.shape, Hb, Wb] (h, w ints,
     or int tensors of one shape)."""
     Hb, Wb = shape2d
-    h = torch.as_tensor(h, device=device).long()
-    w = torch.as_tensor(w, device=device).long()
+    h, w = long_on(h, device), long_on(w, device)
     ys = torch.arange(Hb, device=h.device)[:, None]
     xs = torch.arange(Wb, device=h.device)[None, :]
     return (ys < h[..., None, None]) & (xs < w[..., None, None])

@@ -19,8 +19,10 @@ fixed point would give another result whenever the cap binds.
 
 On the H100 one call is one persistent cooperative launch that runs every
 sweep on the device, with grid-wide barriers between the row fill, the
-column summaries and the column fill (which also does the gated dilation),
-and one 4-byte read of the sweep count afterwards. The fills are segmented
+column summaries and the column fill (which also does the gated dilation).
+The kernel writes its sweep count to a device int and the call reads
+nothing back, so a CUDA graph can capture it; last_sweeps() reads the
+count when asked. The fills are segmented
 scans that each lane runs over its own words (a row segment staged through
 shared memory, a band of a column in registers), with the carries between
 lanes, segments and bands composed by the scan's associative operator, so
@@ -30,7 +32,7 @@ more).
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import threading
 
 import torch
@@ -43,18 +45,37 @@ from .common import shift2d
 launches = 0
 plain_calls = 0
 _local = threading.local()
-# One lock per card, held for a whole K1 call (launch to the sweep-count
-# read): each launch sizes its cooperative grid to fill the card, so two at
-# once from two threads could each hold part of it and spin at a grid
-# barrier for blocks the other holds. Calls on one card take turns.
-_card_locks: dict = {}  # card index -> lock; setdefault is atomic
+# Each launch sizes its cooperative grid to fill the card, so two running
+# at once on two streams could each hold part of the card and spin at a
+# grid barrier for blocks the other holds. So the work that holds K1 takes
+# turns on each card (card_turn): on the device, each turn's stream waits
+# for the event that ends the one before. card index -> (lock, last event)
+_card_turns: dict = {}
+
+
+@contextlib.contextmanager
+def card_turn(device: torch.device):
+    """Order the work enqueued inside the block on the current stream of
+    `device` after every earlier turn on that card, on the device (no host
+    wait). Eager K1 calls take one each; the graph runner takes one around
+    each replay of a graph that holds K1. Not inside a stream capture: a
+    captured graph takes its turn when it is replayed."""
+    turn = _card_turns.setdefault(device.index, [threading.Lock(), None])
+    with turn[0]:
+        stream = torch.cuda.current_stream(device)
+        if turn[1] is not None:
+            stream.wait_event(turn[1])
+        yield
+        turn[1] = stream.record_event()
 
 
 def last_sweeps() -> int:
     """The sweeps that this thread's last call ran (kernel or plain
     version), kept per thread so that concurrent calls cannot overwrite
-    each other's."""
-    return getattr(_local, "sweeps", 0)
+    each other's. After a kernel call this reads the kernel's device count
+    back (a host synchronisation; for diagnostics)."""
+    s = getattr(_local, "sweeps", 0)
+    return s if isinstance(s, int) else int(s.item())
 
 
 def _shift(x, k: int, dim: int):
@@ -110,31 +131,33 @@ def hysteresis_packed_plain(edge0, gate, iters: int):
 
 
 def hysteresis_packed_cuda(edge0, gate, iters: int):
-    """Launch K1 on CUDA int32 words [G, H, W]: one launch and one device
-    read per call, whatever the number of sweeps. Returns new words."""
+    """Launch K1 on CUDA int32 words [G, H, W]: one launch per call,
+    whatever the number of sweeps, and no device read. Returns new words."""
     global launches
     if iters <= 0 or edge0.numel() == 0:
         _local.sweeps = 0
         return edge0.clone()
     lib = _build.load()
     G, H, W = edge0.shape
+    dev = edge0.device
     edge = torch.empty_like(edge0)
     t = torch.empty_like(edge0)
     scratch = torch.empty(lib.img2sgf_hysteresis_scratch(G, H, W),
-                          dtype=torch.int32, device=edge0.device)
-    sweeps = ctypes.c_int(0)
-    card_lock = _card_locks.setdefault(edge.device.index, threading.Lock())
+                          dtype=torch.int32, device=dev)
+    sweeps = torch.empty(1, dtype=torch.int32, device=dev)
+    turn = card_turn(dev) if _build.launching() else contextlib.nullcontext()
     # the C entry point launches on (and sizes its cooperative grid for)
     # the thread's current device, which need not be edge's
-    with card_lock, torch.cuda.device(edge.device):
+    with torch.cuda.device(dev), turn:
         err = lib.img2sgf_hysteresis(
             edge0.data_ptr(), edge.data_ptr(), t.data_ptr(), gate.data_ptr(),
-            scratch.data_ptr(), G, H, W, int(iters), ctypes.addressof(sweeps),
+            scratch.data_ptr(), G, H, W, int(iters), sweeps.data_ptr(),
             _build.stream_of(edge))
     _build.check(err, "hysteresis kernel")
-    with _build.count_lock:
-        launches += 1
-    _local.sweeps = sweeps.value
+    if _build.launching():
+        with _build.count_lock:
+            launches += 1
+    _local.sweeps = sweeps
     return edge
 
 

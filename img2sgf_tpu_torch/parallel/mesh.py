@@ -5,9 +5,11 @@ The only parallel axis in this domain is the image batch, and every
 per-image result is independent, so no collective is needed. Where the JAX
 package shards a [B, H, W, 3] batch over a 1-D mesh with shard_map, the port
 splits it into contiguous per-device shards and runs each shard's batch
-(_detect_batch_impl) on its own device, in its own worker thread, on its
-own CUDA stream; the shards' results are concatenated in batch order on one
-device. The batch must divide by the device count, as in the JAX package.
+(_detect_batch: on a card, the replay of its CUDA graphs from the graph
+cache of its device and stream, pipeline/graphs.py) on its own device, in
+its own worker thread, on its own CUDA stream; the shards' results are
+concatenated in batch order on one device. The batch must divide by the
+device count, as in the JAX package.
 
 Threads in one process share the interpreter lock. A batch makes thousands
 of kernel launches and loops over its images in Python on the host, so the
@@ -30,7 +32,7 @@ from ..pipeline.detect import (
     BoardResult,
     _as_images,
     _content_dims,
-    _detect_batch_impl,
+    _detect_batch,
     _thresholds,
     resolve_device,
 )
@@ -82,8 +84,9 @@ def make_sharded_detector(devices, cfg: DetectionConfig, bucketed: bool = False)
     size and B line thresholds, or with bucketed=True run(canvases,
     thresholds, hs, ws) over canvases whose top-left [hs[i], ws[i]] blocks
     are the images (detect_board_bucket_batch). B must divide by the device
-    count. Each shard runs _detect_batch_impl on its device in its own
-    worker thread, on its own stream; the result is one BoardResult with a
+    count. Each shard runs _detect_batch on its device in its own worker
+    thread, on its own stream (so on a card it replays graphs from the
+    cache of that stream, and shards never share a graph memory pool); the result is one BoardResult with a
     leading [B] on every field, in batch order, on devices[0]. It equals
     detect_board_batch (detect_board_bucket_batch) of the whole batch on
     one device, field for field.
@@ -106,7 +109,7 @@ def make_sharded_detector(devices, cfg: DetectionConfig, bucketed: bool = False)
                 # theirs. Either stream waits for that work first.
                 torch.cuda.current_stream(rgb.device).wait_event(ready)
             x = _as_images(rgb, dev, 4, "[B, H, W, 3]")
-            res = _detect_batch_impl(x, cfg, ths, hw, None)
+            res = _detect_batch(x, cfg, ths, hw, None)
             if stream is not None:
                 # the pool's streams do not wait for the default stream, nor
                 # it for them: the caller's thread reads (and copies to

@@ -14,8 +14,24 @@ finalize, and one rerun of the saturated planes of every image at the
 overflow budgets), post (erasure, Hough lines, clustering, grid validation,
 classification, alignment: one pass of [B, ...] tensor code, the
 counterpart of the JAX package's jax.vmap(_post_circles), which reads
-nothing back to the host). PyTorch runs eagerly, so the overflow rerun is a
-plain Python branch over the saturated planes instead of lax.map/lax.cond.
+nothing back to the host).
+
+The overflow rerun has the JAX package's form: the saturated planes are
+sorted first (a stable argsort), and the big-budget selection runs over
+fixed chunks of _overflow_chunk(P) planes, only on the chunks that hold a
+saturated plane, its results taken with where(sat, big, base). Where the
+JAX package's lax.map/lax.cond decides on the device, the port reads the P
+saturation flags back once (through pinned memory and an event): the one
+host read of a call, and none when the config turns the rerun off.
+
+The stages run in three segments, _segment_select (pre, plane state, base
+selection), _segment_chunk (the rerun of one chunk) and _segment_post
+(merge, post), which read nothing back to the host, so that a CUDA graph
+can capture each one (pipeline/graphs.py, the counterpart of jax.jit). On a
+card, detect_board_jit, detect_board_auto, detect_board_batch and
+detect_board_bucket_batch replay such graphs, one set per shape and config;
+detect_board, and any call given timings=, runs the segments eagerly, as
+every call on the CPU does.
 
 Content dims (the shape-bucketed mode): a canvas whose top-left [h, w]
 block is the real image gives, inside that block, the results of detection
@@ -28,6 +44,7 @@ differs and the port follows it: the Gaussian blur at a canvas margin of
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any
 
@@ -40,6 +57,7 @@ from ..grid.cluster import cluster_1d
 from ..grid.complete import validate_grid
 from ..grid.identify import identify_board
 from ..hough.circles import (
+    _stable_argsort,
     circle_candidates,
     circle_finalize,
     circle_plane_state_pool,
@@ -102,6 +120,20 @@ def _variant_dedup(cfg: DetectionConfig, V: int):
         keep = list(range(V))
         expand = keep
     return keep, expand
+
+
+def _take(x, idx):
+    """x[:, idx] for a static index list, as slices of its runs of
+    consecutive indices: no index tensor is uploaded to the device."""
+    runs = []
+    for i in idx:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    if runs == [[0, x.shape[1]]]:
+        return x
+    return torch.cat([x[:, a:b] for a, b in runs], dim=1)
 
 
 def _pre_circles(rgb_u8, cfg: DetectionConfig, hw=None):
@@ -191,27 +223,115 @@ def _overflow_budgets(cfg: DetectionConfig):
         dedupe_first=True, margin_filter=True)
 
 
-def _circles_pooled(st, cfg: DetectionConfig):
-    """Selection with the saturation-gated overflow rerun: base budgets for
-    every plane, then the saturated planes alone again at the overflow
-    budgets (_overflow_budgets), replacing their base results. Takes the
-    plane state (_plane_state_pool), which both passes share, so that
-    callers can time the two stages apart. Over a batch's pool the rerun is
-    one pass over the saturated planes of every image (their state, content
-    dims included, gathered by index)."""
-    if cfg.overflow_center_candidates <= cfg.max_center_candidates:
+def _overflow_on(cfg: DetectionConfig) -> bool:
+    """Whether the config runs the saturation-gated overflow rerun."""
+    return cfg.overflow_center_candidates > cfg.max_center_candidates
+
+
+def _overflow_chunk(P: int) -> int:
+    """Planes per chunk of the overflow rerun, as the JAX package chooses
+    them: a small divisor of P (4 at P = 8 and at P = 128)."""
+    for c in (4, 6, 8, 2, 16, 1):
+        if c <= P and P % c == 0:
+            return c
+    return P
+
+
+@dataclasses.dataclass
+class _Pooled:
+    """The selection of a plane pool between the segments of a call: the
+    plane state, the base results, and with the overflow rerun the
+    saturation flags sat [P], the planes in rerun order (saturated first)
+    and the buffers big_c, big_v that the chunks write."""
+
+    st: dict
+    circles: Any
+    valid: Any
+    sat: Any = None
+    order: Any = None
+    big_c: Any = None
+    big_v: Any = None
+
+    @property
+    def chunk(self) -> int:
+        return _overflow_chunk(self.circles.shape[0])
+
+
+def _select_base(st, cfg: DetectionConfig) -> _Pooled:
+    """The base selection of every plane. With the overflow rerun off the
+    base pass is final and uses the vote-ordered unique-peak compaction
+    (dedupe_first), as in the JAX package."""
+    if not _overflow_on(cfg):
         circles, valid, _ = _circles_from_state(
             st, cfg, dedupe_first=True, margin_filter=True)
-        return circles, valid
+        return _Pooled(st, circles, valid)
     circles, valid, sat = _circles_from_state(st, cfg, margin_filter=True)
-    redo = sat.nonzero()[:, 0]
-    if redo.numel():
-        sub = {k: v[redo] for k, v in st.items()}
-        big_c, big_v, _ = _circles_from_state(sub, cfg,
-                                              **_overflow_budgets(cfg))
-        circles[redo] = big_c
-        valid[redo] = big_v
-    return circles, valid
+    return _Pooled(st, circles, valid, sat, _stable_argsort(~sat),
+                   torch.zeros_like(circles), torch.zeros_like(valid))
+
+
+# host reads of saturation flags (_chunks_to_run), added to under _reads_lock
+flag_reads = 0
+_reads_lock = threading.Lock()
+
+
+def _chunks_to_run(pooled: _Pooled) -> int:
+    """How many chunks of the rerun order hold a saturated plane: the
+    first ceil(n_sat / chunk). The call's one host read, of the P flags
+    (through pinned memory and an event on a card); none with the rerun
+    off."""
+    global flag_reads
+    if pooled.sat is None:
+        return 0
+    sat = pooled.sat
+    if sat.is_cuda:
+        buf = torch.empty(sat.shape, dtype=torch.bool, pin_memory=True)
+        buf.copy_(sat, non_blocking=True)
+        torch.cuda.current_stream(sat.device).record_event().synchronize()
+        sat = buf
+    with _reads_lock:
+        flag_reads += 1
+    return -(-int(sat.sum()) // pooled.chunk)
+
+
+def _segment_chunk(pooled: _Pooled, idx, cfg: DetectionConfig) -> None:
+    """The overflow rerun of one chunk: the big-budget selection
+    (_overflow_budgets) of the planes idx (a [chunk] int64 tensor on the
+    pool's device) from their gathered plane state, written into
+    pooled.big_c and pooled.big_v at those planes. Reads nothing back to
+    the host."""
+    sub = {k: v.index_select(0, idx) for k, v in pooled.st.items()}
+    c, v, _ = _circles_from_state(sub, cfg, **_overflow_budgets(cfg))
+    pooled.big_c.index_copy_(0, idx, c)
+    pooled.big_v.index_copy_(0, idx, v)
+
+
+def _run_chunks(pooled: _Pooled, cfg: DetectionConfig) -> None:
+    """The eager overflow rerun: every chunk that holds a saturated plane."""
+    rp = pooled.chunk
+    for c in range(_chunks_to_run(pooled)):
+        _segment_chunk(pooled, pooled.order[c * rp:(c + 1) * rp], cfg)
+
+
+def _merge(pooled: _Pooled):
+    """(circles, valid) of every plane: the rerun's results on the
+    saturated planes, the base ones elsewhere."""
+    if pooled.sat is None:
+        return pooled.circles, pooled.valid
+    return (torch.where(pooled.sat[:, None, None], pooled.big_c,
+                        pooled.circles),
+            torch.where(pooled.sat[:, None], pooled.big_v, pooled.valid))
+
+
+def _circles_pooled(st, cfg: DetectionConfig):
+    """Selection with the saturation-gated overflow rerun: base budgets for
+    every plane, then the chunks that hold a saturated plane again at the
+    overflow budgets, whose results replace the base ones on the saturated
+    planes. Takes the plane state (_plane_state_pool), which both passes
+    share. Returns (circles [P, max_out, 3], valid [P, max_out])."""
+    pooled = _select_base(st, cfg)
+    _run_chunks(pooled, cfg)
+    return _merge(pooled)
 
 
 def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
@@ -287,9 +407,63 @@ def _post_circles(grey, edges, circles, circles_valid, cfg: DetectionConfig,
     )
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _no_mark(name: str) -> None:
+    pass
+
+
+@dataclasses.dataclass
+class _Selected:
+    """What _segment_select leaves for the other segments: the batch's grey
+    images and outer edges, the pooled selection, and the variant expansion
+    of _variant_dedup."""
+
+    grey: Any
+    edges: Any
+    pooled: _Pooled
+    expand: list
+
+
+def _segment_select(rgb, cfg: DetectionConfig, hw=None,
+                    mark=_no_mark) -> _Selected:
+    """Pre, plane state and base selection of rgb [B, H, W, 3] uint8 (hw:
+    None or [B] int64 content dims, on rgb's device). Reads nothing back to
+    the host. mark(stage) is called after "pre" and "state"."""
+    B, H, W = rgb.shape[:3]
+    grey, edges, variants = _pre_circles(rgb, cfg, hw)
+    keep, expand = _variant_dedup(cfg, variants.shape[1])
+    Vu = len(keep)
+    planes = _take(variants, keep).reshape(B * Vu, H, W)
+    hwp = None if hw is None else tuple(v[:, None].expand(B, Vu).reshape(-1)
+                                        for v in hw)
+    mark("pre")
+    st = _plane_state_pool(planes, cfg, hwp)
+    mark("state")
+    return _Selected(grey, edges, _select_base(st, cfg), expand)
+
+
+def _segment_post(sel: _Selected, cfg: DetectionConfig, line_thresholds,
+                  hw=None, mark=_no_mark) -> BoardResult:
+    """Merge of the rerun, variant expansion and the post stage: the
+    BoardResult with a leading [B]. Reads nothing back to the host.
+    mark(stage) is called after "select" and "post"."""
+    circles, valid = _merge(sel.pooled)
+    B = sel.grey.shape[0]
+    Vu = circles.shape[0] // B
+    vcircles = _take(circles.reshape(B, Vu, -1, 3), sel.expand).reshape(B, -1, 3)
+    vvalid = _take(valid.reshape(B, Vu, -1), sel.expand).reshape(B, -1)
+    mark("select")
+    res = _post_circles(sel.grey, sel.edges, vcircles, vvalid, cfg,
+                        line_thresholds, hw)
+    mark("post")
+    return res
+
+
+def _to_device(t, dev: torch.device):
+    """t on dev. A host tensor goes to a card through pinned memory, so the
+    copy makes the host wait for nothing."""
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def resolve_device(device) -> torch.device:
@@ -303,14 +477,13 @@ def resolve_device(device) -> torch.device:
 
 def _as_images(x, dev: torch.device, ndim: int, what: str):
     """uint8 images (numpy array or tensor) of `ndim` dims ending in 3
-    channels, on dev."""
+    channels, on dev (_to_device)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    x = x.to(dev)
     if x.dtype != torch.uint8 or x.ndim != ndim or x.shape[-1] != 3:
         raise ValueError(f"expected {what} uint8, got {tuple(x.shape)} "
                          f"{x.dtype}")
-    return x
+    return _to_device(x, dev)
 
 
 def _thresholds(line_thresholds, B: int):
@@ -338,47 +511,46 @@ def _content_dims(hs, ws, B: int, H: int, W: int):
 
 def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
                        timings: dict | None) -> BoardResult:
-    """The four stages over rgb [B, H, W, 3] uint8 on its device, each once
-    for the whole batch. line_thresholds: [B] float32 (_thresholds); hw:
-    None or (hs, ws), [B] int64 (_content_dims); both on the host or on
-    rgb's device. Returns the BoardResult with a leading [B] on every
-    field.
+    """The segments over rgb [B, H, W, 3] uint8 on its device, eagerly,
+    each stage once for the whole batch: _segment_select, the overflow
+    rerun's chunks (_run_chunks, the call's one host read), _segment_post.
+    line_thresholds: [B] float32 (_thresholds); hw: None or (hs, ws), [B]
+    int64 (_content_dims); both on the host or on rgb's device. Returns the
+    BoardResult with a leading [B] on every field.
 
     timings: if a dict is given, the device is synchronised after each
     stage and the stage wall times (seconds) are stored under "pre",
     "state", "select" and "post"."""
     dev = rgb.device
-    B, H, W = rgb.shape[:3]
-    t = time.perf_counter()
+    mark = _no_mark
+    if timings is not None:
+        t = time.perf_counter()
 
-    def mark(name):
-        nonlocal t
-        if timings is not None:
-            _sync(dev)
+        def mark(name):
+            nonlocal t
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             now = time.perf_counter()
             timings[name] = now - t
             t = now
 
-    # CUDA stages a pageable host-to-device copy before the call returns,
-    # so these copies need not wait for the device
-    ths = line_thresholds.to(dev, non_blocking=True)
-    hwb = None if hw is None else tuple(v.to(dev, non_blocking=True)
-                                        for v in hw)
-    grey, edges, variants = _pre_circles(rgb, cfg, hwb)
-    keep, expand = _variant_dedup(cfg, variants.shape[1])
-    Vu = len(keep)
-    planes = variants[:, keep].reshape(B * Vu, H, W)
-    hwp = None if hwb is None else tuple(v.repeat_interleave(Vu) for v in hwb)
-    mark("pre")
-    st = _plane_state_pool(planes, cfg, hwp)
-    mark("state")
-    vcircles_u, vvalid_u = _circles_pooled(st, cfg)
-    vcircles = vcircles_u.reshape(B, Vu, -1, 3)[:, expand].reshape(B, -1, 3)
-    vvalid = vvalid_u.reshape(B, Vu, -1)[:, expand].reshape(B, -1)
-    mark("select")
-    res = _post_circles(grey, edges, vcircles, vvalid, cfg, ths, hwb)
-    mark("post")
-    return res
+    ths = _to_device(line_thresholds, dev)
+    hwb = None if hw is None else tuple(_to_device(v, dev) for v in hw)
+    sel = _segment_select(rgb, cfg, hwb, mark)
+    _run_chunks(sel.pooled, cfg)
+    return _segment_post(sel, cfg, ths, hwb, mark)
+
+
+def _detect_batch(rgb, cfg: DetectionConfig, line_thresholds, hw,
+                  timings: dict | None) -> BoardResult:
+    """_detect_batch_impl's result, from the graphs of pipeline/graphs.py
+    for a batch on a card (one set per shape, config and stream, captured
+    at first use and replayed), eagerly on the CPU or with timings."""
+    if rgb.is_cuda and timings is None:
+        from . import graphs
+
+        return graphs.run(rgb, cfg, line_thresholds, hw)
+    return _detect_batch_impl(rgb, cfg, line_thresholds, hw, timings)
 
 
 def _row(res: BoardResult, i: int) -> BoardResult:
@@ -399,6 +571,9 @@ def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None,
     top-left [h, w] block is the real image, and the results inside that
     block are those of native-size detection (see the module docstring).
 
+    Runs eagerly, as the JAX package's detect_board is not jitted;
+    detect_board_jit is its compiled form.
+
     timings: per-stage wall times, as _detect_batch_impl stores them.
     """
     dev = resolve_device(device)
@@ -410,6 +585,19 @@ def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None,
         hw = _content_dims([content_hw[0]], [content_hw[1]], 1, *rgb.shape[:2])
     ths = _thresholds([line_threshold], 1)
     return _row(_detect_batch_impl(rgb[None], cfg, ths, hw, timings), 0)
+
+
+@torch.no_grad()
+def detect_board_jit(rgb_u8, cfg: DetectionConfig, line_threshold, *,
+                     device="cuda") -> BoardResult:
+    """detect_board of one [H, W, 3] image at native size from its CUDA
+    graphs on a card (captured at the first call of each shape and config,
+    replayed after), the counterpart of the JAX package's detect_board_jit;
+    on the CPU, eagerly."""
+    dev = resolve_device(device)
+    rgb = _as_images(rgb_u8, dev, 3, "[H, W, 3]")
+    ths = _thresholds([line_threshold], 1)
+    return _row(_detect_batch(rgb[None], cfg, ths, None, None), 0)
 
 
 # canvas-size ladder of the shape-bucketed path, as in the JAX package: one
@@ -432,15 +620,20 @@ def detect_board_auto(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
     """One [h, w, 3] image through the shape-bucketed path: padded
     top-left into its bucket_dim canvas, detected with content_hw, and the
     image-plane fields (grey, edges, circles_removed) cropped back to
-    [h, w]."""
+    [h, w]. On a card it replays the bucket's CUDA graphs (one set per
+    canvas and config); with timings= it runs eagerly (see
+    _detect_batch_impl)."""
     dev = resolve_device(device)
+    if line_threshold is None:
+        line_threshold = cfg.line_threshold
     rgb = _as_images(rgb_u8, dev, 3, "[h, w, 3]")
     h, w = rgb.shape[:2]
-    canvas = torch.zeros((bucket_dim(h), bucket_dim(w), 3), dtype=torch.uint8,
-                         device=dev)
-    canvas[:h, :w] = rgb
-    res = detect_board(canvas, cfg, line_threshold, (h, w), device=dev,
-                       timings=timings)
+    Hc, Wc = bucket_dim(h), bucket_dim(w)
+    canvas = torch.zeros((1, Hc, Wc, 3), dtype=torch.uint8, device=dev)
+    canvas[0, :h, :w] = rgb
+    hw = _content_dims([h], [w], 1, Hc, Wc)
+    ths = _thresholds([line_threshold], 1)
+    res = _row(_detect_batch(canvas, cfg, ths, hw, timings), 0)
     return dataclasses.replace(res, grey=res.grey[:h, :w],
                                edges=res.edges[:h, :w],
                                circles_removed=res.circles_removed[:h, :w])
@@ -450,11 +643,13 @@ def detect_board_auto(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
 def detect_board_batch(rgb_u8_batch, cfg: DetectionConfig, line_thresholds, *,
                        device="cuda", timings: dict | None = None) -> BoardResult:
     """Detection over a [B, H, W, 3] uint8 batch of one size at native size;
-    line_thresholds: B values. Every BoardResult field has a leading [B]."""
+    line_thresholds: B values. Every BoardResult field has a leading [B].
+    On a card it replays the CUDA graphs of (B, H, W, cfg); with timings=
+    it runs eagerly."""
     dev = resolve_device(device)
     rgb = _as_images(rgb_u8_batch, dev, 4, "[B, H, W, 3]")
     ths = _thresholds(line_thresholds, rgb.shape[0])
-    return _detect_batch_impl(rgb, cfg, ths, None, timings)
+    return _detect_batch(rgb, cfg, ths, None, timings)
 
 
 @torch.no_grad()
@@ -465,10 +660,11 @@ def detect_board_bucket_batch(canvases, cfg: DetectionConfig, line_thresholds,
     top-left [hs[i], ws[i]] blocks are the real images (mixed native sizes
     in one bucket, the CLI's --batch path). Row i equals detect_board_auto
     of image i; image-plane fields stay canvas-sized, as in the JAX
-    package."""
+    package. On a card it replays the CUDA graphs of (B, Hc, Wc, cfg); with
+    timings= it runs eagerly."""
     dev = resolve_device(device)
     rgb = _as_images(canvases, dev, 4, "[B, Hc, Wc, 3]")
     B, H, W = rgb.shape[:3]
     ths = _thresholds(line_thresholds, B)
     hw = _content_dims(hs, ws, B, H, W)
-    return _detect_batch_impl(rgb, cfg, ths, hw, timings)
+    return _detect_batch(rgb, cfg, ths, hw, timings)

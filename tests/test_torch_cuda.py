@@ -302,17 +302,21 @@ def test_k2_k3_on_a_two_image_pool(dev):
 
 def test_detect_board_bucket_batch_cuda_equals_cpu(dev):
     """Two images of mixed sizes in one canvas: every field of the CUDA
-    batch equals the CPU batch, with 2 K1, 2 K2 and 1 K3 launches."""
+    batch, run eagerly (timings=, with 2 K1, 2 K2 and 1 K3 launches) and
+    from its CUDA graphs, equals the CPU batch."""
     cfg, can, _ = _two_image_pool(dev)
     hs = ws = [192, 190]
     counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
     before = [m.launches for m in counters]
-    a = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
+    a = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev,
+                                  timings={})
     assert [m.launches - b for m, b in zip(counters, before)] == [2, 2, 1]
+    g = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
     b = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device="cpu")
     for f in dataclasses.fields(a):
-        x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
-        assert x.dtype == y.dtype and torch.equal(x, y), f.name
+        y = getattr(b, f.name)
+        for x in (getattr(a, f.name).cpu(), getattr(g, f.name).cpu()):
+            assert x.dtype == y.dtype and torch.equal(x, y), f.name
     assert bool(b.board_ready.all())
 
 
@@ -375,16 +379,20 @@ def test_k1_k3_from_two_threads(dev):
 def test_sharded_detector_two_streams_equals_batch(dev):
     """make_sharded_detector over [cuda:0, cuda:0] (two worker threads on two
     streams of one card) in the bucketed mode equals the one-device batch
-    in every field, and launches each kernel from both threads."""
+    in every field, and launches each kernel from both threads: each
+    shard's first call runs its graphs' warm-up eagerly, 2 K1, 4 K2 and
+    2 K3 (the base selection and one rerun chunk), before the capture."""
     from img2sgf_tpu_torch.parallel import make_sharded_detector
+    from img2sgf_tpu_torch.pipeline import graphs
 
     cfg, can, _ = _two_image_pool(dev)
     hs = ws = [192, 190]
     want = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
+    graphs.clear()
     counters = (hysteresis_cuda, rescore_cuda, radius_cuda)
     before = [m.launches for m in counters]
     got = make_sharded_detector([dev, dev], cfg, bucketed=True)(can, [31, 31], hs, ws)
-    assert [m.launches - b for m, b in zip(counters, before)] == [4, 4, 2]
+    assert [m.launches - b for m, b in zip(counters, before)] == [4, 8, 4]
     for f in dataclasses.fields(want):
         x, y = getattr(got, f.name), getattr(want, f.name)
         assert x.device == y.device and torch.equal(x, y), f.name
@@ -403,7 +411,7 @@ def test_sharded_detector_orders_its_streams(dev, monkeypatch):
     cfg, can, _ = _two_image_pool(dev)
     hs = ws = [192, 190]
     want = detect_board_bucket_batch(can, cfg, [31, 31], hs, ws, device=dev)
-    impl = mesh._detect_batch_impl
+    impl = mesh._detect_batch
 
     def slow_impl(*args):
         res = impl(*args)
@@ -417,7 +425,7 @@ def test_sharded_detector_orders_its_streams(dev, monkeypatch):
             rows[f.name].copy_(getattr(res, f.name))
         return type(res)(**rows)
 
-    monkeypatch.setattr(mesh, "_detect_batch_impl", slow_impl)
+    monkeypatch.setattr(mesh, "_detect_batch", slow_impl)
     run = make_sharded_detector([dev, dev], cfg, bucketed=True)
     src = torch.from_numpy(can).to(dev)
     torch.cuda.synchronize(dev)
@@ -526,3 +534,237 @@ def test_sharded_detector_across_cards(dev):
     for f in dataclasses.fields(want):
         x, y = getattr(got, f.name), getattr(want, f.name)
         assert x.device == y.device and torch.equal(x, y), f.name
+
+
+# --- the captured CUDA graphs of the jitted entry points (pipeline/graphs.py)
+
+def _equal_results(got, want, label):
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        assert x.shape == y.shape and x.dtype == y.dtype, (label, f.name)
+        assert torch.equal(x, y), (label, f.name)
+
+
+def _graph_case(entry, overflow):
+    """(graphed call, eager call) of an entry point on 256^2 diagrams: the
+    noisy one saturates planes at the default config (the chunk graphs
+    run); overflow=False turns the rerun off (one graph per call)."""
+    from chip_smoke import noisy_diagram, render_diagram
+    from img2sgf_tpu_torch.pipeline import (
+        detect_board_auto, detect_board_batch, detect_board_jit)
+
+    cfg = DetectionConfig()
+    if not overflow:
+        cfg = cfg.replace(overflow_center_candidates=0)
+    noisy = noisy_diagram()
+    clean, _ = render_diagram(size=240, n=9, n_stones=10, seed=5)
+    if entry == "jit":
+        return (lambda d: detect_board_jit(noisy, cfg, 30, device=d),
+                lambda d: detect_board(noisy, cfg, 30, device=d))
+    if entry == "auto":
+        return (lambda d: detect_board_auto(clean, cfg, 30, device=d),
+                lambda d: detect_board_auto(clean, cfg, 30, device=d,
+                                            timings={}))
+    if entry == "batch":
+        imgs = np.stack([noisy, noisy[::-1].copy()])
+        return (lambda d: detect_board_batch(imgs, cfg, [30, 29], device=d),
+                lambda d: detect_board_batch(imgs, cfg, [30, 29], device=d,
+                                             timings={}))
+    can = np.zeros((2, 256, 256, 3), np.uint8)
+    can[0] = noisy
+    can[1, :240, :240] = clean
+    args = (can, cfg, [30, 29], [256, 240], [256, 240])
+    return (lambda d: detect_board_bucket_batch(*args, device=d),
+            lambda d: detect_board_bucket_batch(*args, device=d, timings={}))
+
+
+@pytest.mark.parametrize("overflow", [True, False], ids=["overflow", "off"])
+@pytest.mark.parametrize("entry", ["jit", "auto", "batch", "bucket_batch"])
+def test_graphed_entry_point_equals_eager(dev, entry, overflow):
+    """Each graphed entry point equals its eager run in every field, on its
+    first call (warm-up and capture, then a replay) and on a warm replay."""
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    graphed, eager = _graph_case(entry, overflow)
+    want = eager(dev)
+    before = graphs.replays
+    _equal_results(graphed(dev), want, "first call")
+    _equal_results(graphed(dev), want, "warm replay")
+    assert graphs.replays >= before + 2
+
+
+def test_graph_replay_takes_new_inputs(dev):
+    """A replay computes from its own inputs: the second image's result,
+    not the captured one's."""
+    from chip_smoke import render_diagram
+    from img2sgf_tpu_torch.pipeline import detect_board_jit
+
+    cfg = DetectionConfig()
+    a, _ = render_diagram(size=224, n=9, n_stones=10, seed=1)
+    b, _ = render_diagram(size=224, n=9, n_stones=10, seed=2)
+    ra = detect_board_jit(a, cfg, 30, device=dev)
+    rb = detect_board_jit(b, cfg, 29, device=dev)
+    _equal_results(rb, detect_board(b, cfg, 29, device=dev), "second input")
+    _equal_results(ra, detect_board(a, cfg, 30, device=dev), "first input")
+    assert not torch.equal(ra.detected_board, rb.detected_board)
+
+
+@pytest.mark.parametrize("overflow", [True, False], ids=["overflow", "off"])
+def test_graph_replay_makes_no_sync(dev, overflow):
+    """A warm replay makes no host synchronisation that PyTorch's sync
+    debug mode sees; the saturation flags are read once (an event wait,
+    which the mode does not see) with the rerun on, never with it off."""
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    graphed, _ = _graph_case("auto", overflow)
+    graphed(dev)
+    graphed(dev)
+    torch.cuda.synchronize()
+    reads = pipeline_detect.flag_reads
+    before = graphs.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = graphed(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert graphs.replays > before
+    assert pipeline_detect.flag_reads == reads + (1 if overflow else 0)
+    assert bool(res.board_ready)
+
+
+def test_graph_outlives_evicted_constants(dev):
+    """Every device-constant cache drops its tables and their memory is
+    handed out again and overwritten: a live graph still reads its own
+    copies and gives the same result."""
+    from img2sgf_tpu_torch.hough import circles, lines
+
+    graphed, eager = _graph_case("jit", True)
+    want = eager(dev)
+    _equal_results(graphed(dev), want, "captured")
+    for fn in (rescore_cuda._rhat_on, radius_cuda._tables_on,
+               lines._vote_bins, circles._bin_exceptions_on,
+               circles._centre_on, circles._ring_on):
+        fn.cache_clear()
+    junk = [torch.full((n,), -7, dtype=torch.int64, device=dev)
+            for n in (8, 16, 64, 512, 4096, 65536) for _ in range(64)]
+    _equal_results(graphed(dev), want, "after the caches dropped their tables")
+    assert junk[-1].min() == -7
+
+
+def test_graph_cache_drops_least_recent_key(dev, monkeypatch):
+    """With room for two one-graph keys, a third key drops the least
+    recently used one, which is captured again at its next call and still
+    equals eager detection."""
+    from chip_smoke import render_diagram
+    from img2sgf_tpu_torch.pipeline import detect_board_jit, graphs
+
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 2)
+    graphs.clear()
+    cfg = DetectionConfig(overflow_center_candidates=0)
+    imgs = [render_diagram(size=s, n=9, n_stones=8, seed=s)[0]
+            for s in (160, 176, 192)]
+    for im in imgs:
+        detect_board_jit(im, cfg, 25, device=dev)
+    cache = graphs.cache_for(dev)
+    assert [k[2] for k in cache.keys] == [176, 192]
+    before = graphs.captures
+    got = detect_board_jit(imgs[0], cfg, 25, device=dev)
+    assert graphs.captures == before + 1
+    assert [k[2] for k in cache.keys] == [192, 160]
+    _equal_results(got, detect_board(imgs[0], cfg, 25, device=dev), "recaptured")
+    graphs.clear()
+
+
+def test_graphs_from_threads_sharing_a_stream(dev):
+    """Four threads call detect_board_jit at once on the default stream
+    (one graph cache, one set of static buffers) with two images in turns:
+    each result is its own image's eager one."""
+    import sys
+    import threading
+
+    from chip_smoke import render_diagram
+    from img2sgf_tpu_torch.pipeline import detect_board_jit
+
+    cfg = DetectionConfig()
+    imgs = [render_diagram(size=208, n=9, n_stones=10, seed=s)[0]
+            for s in (3, 4)]
+    want = [detect_board(im, cfg, 28, device=dev) for im in imgs]
+    detect_board_jit(imgs[0], cfg, 28, device=dev)  # capture
+    bad, done = [], []
+
+    def work(t):
+        for i in range(6):
+            k = (t + i) % 2
+            got = detect_board_jit(imgs[k], cfg, 28, device=dev)
+            if not all(torch.equal(getattr(got, f.name), getattr(want[k], f.name))
+                       for f in dataclasses.fields(got)):
+                bad.append((t, i))
+        done.append(t)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(th.is_alive() for th in threads)
+    assert sorted(done) == [0, 1, 2, 3] and not bad, bad
+
+
+def _run_child(code):
+    import subprocess
+    import sys
+
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          cwd=str(__import__("pathlib").Path(__file__)
+                                  .resolve().parent.parent))
+
+
+def test_k2_gap_fails_device_assert(dev):
+    """A gap in K2's valid prefix fails a device assert on the card (in a
+    child process: the assert ends its CUDA context)."""
+    proc = _run_child(
+        "import torch\n"
+        "from img2sgf_tpu_torch.hough.rescore_cuda import exact_rescore\n"
+        "d = torch.device('cuda', 0)\n"
+        "e = torch.zeros((1, 32, 32), dtype=torch.bool, device=d)\n"
+        "s = torch.zeros((1, 32, 32), dtype=torch.int32, device=d)\n"
+        "y = torch.full((1, 4), 9, dtype=torch.int64, device=d)\n"
+        "v = torch.tensor([[True, False, True, False]], device=d)\n"
+        "exact_rescore(e, s, s, y, y, v, 1, 8)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no assert')\n")
+    assert proc.returncode != 0, proc.stdout
+    assert "no assert" not in proc.stdout
+    assert "assert" in (proc.stderr + proc.stdout).lower(), proc.stderr[-2000:]
+
+
+def test_failed_capture_raises(dev):
+    """A segment that reads a value back cannot be captured: the call
+    raises (naming the capture) and runs nothing eagerly in its place (in
+    a child process)."""
+    proc = _run_child(
+        "import numpy as np, torch\n"
+        "from img2sgf_tpu_torch import DetectionConfig\n"
+        "from img2sgf_tpu_torch.pipeline import detect, detect_board_jit\n"
+        "post = detect._segment_post\n"
+        "def reads(sel, *a, **k):\n"
+        "    sel.grey.sum().item()\n"
+        "    return post(sel, *a, **k)\n"
+        "detect._segment_post = reads\n"
+        "img = np.full((96, 96, 3), 200, np.uint8)\n"
+        "cfg = DetectionConfig(overflow_center_candidates=0)\n"
+        "try:\n"
+        "    detect_board_jit(img, cfg, 20, device='cuda')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', str(e)[:300])\n"
+        "else:\n"
+        "    print('ran')\n")
+    assert "raised: CUDA graph capture of the detector failed" in proc.stdout, \
+        proc.stdout + proc.stderr[-2000:]
