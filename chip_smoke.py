@@ -16,7 +16,12 @@ Phases, each printing one line or a few:
      detect_board, the 16-image bucket batch, the 32-image 512^2 batch and
      the noisy diagram's overflow rerun, and at seeded edge cases (ties at
      min_dist, more acceptances than max_out, empty planes, K = 8192), with
-     its bound and its latency floor (dependent steps);
+     its bound and its latency floor (dependent steps); the accumulator
+     kernel (A) at the recorded labels of the 768^2 detect_board, the
+     16-image bucket batch and the 32-image 512^2 batch, and at the 768^2
+     labels with the per-offset table (span 31) and at r = 0 (0-29), with
+     its bound, and its yardstick: one conv2d of the one-hot labels with
+     the offset table as its weight (library_ms, 768^2 only);
   3. direction_bins and pixel_steps over all 2041^2 Sobel gradient pairs,
      CUDA against CPU, exactly equal; direction_bins also at 48, 63, 66,
      127 and 254 bins;
@@ -68,13 +73,15 @@ Phases, each printing one line or a few:
      decoded image, and warm img/s of each beside its one-device batch;
   5e. (run right after phase 5) the post stage, one pass over a batch, at
      the recorded inputs of the 768^2 detect_board, the 16-image bucket
-     batch and the 32-image 512^2 batch: a warm pass and a warm greedy_min_dist
-     call make no host synchronisation (torch.cuda.set_sync_debug_mode
+     batch and the 32-image 512^2 batch: a warm pass, a warm greedy_min_dist
+     call and a warm kernel A call make no host synchronisation
+     (torch.cuda.set_sync_debug_mode
      "error"), the pass's warm wall and CUDA-event time beside the post
      stage's time from timings=, and the host synchronisations of one warm
      detect_board and one warm 16-image batch counted by their sites
      ("warn");
-  6. every kernel (the greedy one too) launched by each path's counted run
+  6. every kernel (the greedy one and A too) launched by each path's counted
+     run
      (detect_board and
      its config variants, hough_circles_gradient,
      detect_board_bucket_batch, detect_board_batch, DetectSession.process,
@@ -83,16 +90,17 @@ Phases, each printing one line or a few:
   7. torch.profiler over each kernel's main-path call, the single image's
      other cases (K1's outer Canny, K2's 3x3 case and both K2 cases at
      max_r 60), its batch cases and the r = 0 cases of K2 and K3 (K3: each
-     of its cases; the greedy kernel: each of its cases): its launches
-     and device reads per call (K1, K3 and the greedy kernel must each be
-     one kernel launch and no device read) and its
-     device time;
+     of its cases; the greedy kernel and A: each of their cases): its
+     launches and device reads per call (K1, K3, the greedy kernel and A
+     must each be one kernel launch and no device read) and its device
+     time;
   8. the device busy share of one warm 16-image batch (profiler), then
      K1's main-path profile once more (logged only);
-  9. the per-offset accumulator (radius span 31) and the cascade (30) on
-     the 768^2 diagram's 8 planes under torch.profiler: wall and device
-     busy time (profiles of thousands of launches before phase 7 made
-     its first profile record no device event);
+  9. the plain per-offset accumulator (radius span 31) and the plain
+     cascade (30) on the 768^2 diagram's 8 planes under torch.profiler,
+     beside kernel A with each table: wall and device busy time (profiles
+     of thousands of launches before phase 7 made its first profile record
+     no device event);
   10. (run after phase 5d) the captured CUDA graphs of the jitted entry
      points: detect_board_auto and detect_board_jit of the 768^2 diagram
      (and auto with the overflow rerun off: one graph, no flag read),
@@ -105,7 +113,7 @@ Phases, each printing one line or a few:
      pool size; the session's action script graphed equal to eager;
   11. (last) each phase-10 path's warm graphed call under torch.profiler:
      the kernels a replay runs, counted by name (the 768^2 call must run
-     K1 twice and K2, K3 and G), its device busy share and wall.
+     K1 twice and K2, K3, G and A), its device busy share and wall.
 
 The counted runs of phase 6 drop the graph caches first: a graphed path's
 counted call is its first, whose warm-up runs the segments eagerly (one
@@ -320,10 +328,11 @@ def bucket(imgs):
 
 @contextlib.contextmanager
 def recording():
-    """Record the arguments of every K1, K2, K3 and greedy-kernel wrapper
-    call, and of every post-stage pass, made through the pipeline's own
-    references to them: yields {"K1": [(args, kwargs)], "K2": [...], "K3":
-    [...], "G": [...], "post": [...], "threads": {"K1": {idents}, ...}},
+    """Record the arguments of every K1, K2, K3, greedy-kernel and
+    accumulator (A) wrapper call, and of every post-stage pass, made
+    through the pipeline's own references to them: yields {"K1": [(args,
+    kwargs)], "K2": [...], "K3": [...], "G": [...], "A": [...], "post":
+    [...], "threads": {"K1": {idents}, ...}},
     "threads" holding the idents of the threads that made each call."""
     import importlib
     import threading
@@ -335,6 +344,8 @@ def recording():
                (mod("img2sgf_tpu_torch.pipeline.detect"), "radius_support_pool",
                 "K3"),
                (mod("img2sgf_tpu_torch.hough.circles"), "greedy_min_dist", "G"),
+               (mod("img2sgf_tpu_torch.hough.circles"),
+                "vote_accumulator_pool_labels", "A"),
                (mod("img2sgf_tpu_torch.pipeline.detect"), "_post_circles",
                 "post")]
     calls = {k: [] for _, _, k in targets}
@@ -504,18 +515,18 @@ def k3_work(emask, ys, xs, want, min_r, max_r):
 
 
 # the wrappers and the stage that recording() records
-CALLS = ("K1", "K2", "K3", "G", "post")
+CALLS = ("K1", "K2", "K3", "G", "A", "post")
 
 
 def main_path_calls(dev, rgb, cfg):
-    """The K1, K2 and K3 wrapper arguments of one detect_board run on the
-    768^2 diagram (recording)."""
+    """The kernel wrappers' arguments of one detect_board run on the 768^2
+    diagram (recording)."""
     from img2sgf_tpu_torch import choose_line_threshold
     from img2sgf_tpu_torch.pipeline import detect_board
 
     with recording() as calls:
         detect_board(rgb, cfg, choose_line_threshold(*rgb.shape[:2]), device=dev)
-    if [len(calls[k]) for k in CALLS] != [2, 2, 1, 1, 1]:
+    if [len(calls[k]) for k in CALLS] != [2, 2, 1, 1, 1, 1]:
         raise AssertionError("the 768^2 main path's kernel calls: "
                              f"{ {k: len(calls[k]) for k in CALLS} }")
     return calls
@@ -570,7 +581,8 @@ def batch_kernel_cases(dev, cfg, batch, rate):
     with recording() as calls:  # eager (timings=): each call's own inputs
         detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev,
                                   timings={})
-    if [len(calls[k]) for k in CALLS] not in ([2, 2, 1, 1, 1], [2, 4, 2, 2, 1]):
+    if [len(calls[k]) for k in CALLS] not in ([2, 2, 1, 1, 1, 1],
+                                              [2, 4, 2, 2, 1, 1]):
         raise AssertionError("the batch's kernel calls: "
                              f"{ {k: len(calls[k]) for k in CALLS} }")
     out = {"K1": [], "K2": [], "K3": []}
@@ -821,6 +833,21 @@ def phase_kernels(dev, rgb, cfg, batch, small):
               for label, ys_, xs_, live_, md, mo in greedy_cases()]
     g = [greedy_case(label, args) for label, args in recorded + seeded]
     results["G"] = dict(g[0], err=max(c["err"] for c in g), cases=g)
+
+    # --- kernel A at the recorded labels of the 768^2 main path, the
+    # 16-image bucket batch and the 32-image 512^2 batch, then at the main
+    # path's labels with the per-offset table (span 31) and at r = 0
+    main_a = calls["A"][0][0]
+    lbl, nb = main_a[0], main_a[1]
+    a = [accumulator_case(label, *args, rate) for label, args in (
+        (f"{SIZE}^2 main path", main_a),
+        (f"bucket batch B={len(batch)}", bcalls["A"][0][0]),
+        (f"{SMALL}^2 batch B={SMALL_B}", scalls["A"][0][0]),
+        (f"{SIZE}^2 per-offset", (lbl, nb, 1, 31)),
+        (f"{SIZE}^2 r = 0", (lbl, nb, 0, 29)))]
+    lib_ms, lib_err = accumulator_library(*main_a)
+    results["A"] = dict(a[0], err=max(c["err"] for c in a), cases=a,
+                        library_ms=lib_ms, library_err=lib_err)
     return results, dict(single=calls, bucket=bcalls, small=scalls)
 
 
@@ -877,8 +904,92 @@ def greedy_case(label, args):
                 operations=ops, call=lambda a=args: greedy_cuda.greedy_min_dist(*a))
 
 
+def accumulator_work(labels, num_bins, min_r, max_r):
+    """(bytes, votes) of kernel A on these labels. Bytes, each read or
+    written once: the uint8 labels, the float32 accumulator and the offset
+    table (start and entries, int32). Votes: over the edge pixels, the sum
+    of their bin's table weights (2 * n_r each), one int32 add a vote."""
+    import torch
+
+    from img2sgf_tpu_torch.hough import accumulator_cuda
+
+    start, entries, _ = accumulator_cuda.vote_table(num_bins, min_r, max_r)
+    wsum = np.bincount(np.repeat(np.arange(num_bins), np.diff(start)),
+                       weights=entries[2], minlength=num_bins).astype(np.int64)
+    counts = torch.bincount(labels.reshape(-1).long(),
+                            minlength=num_bins + 1)[:num_bins].cpu().numpy()
+    nbytes = 5 * labels.numel() + start.nbytes + entries.nbytes
+    return nbytes, int((counts.astype(np.int64) * wsum).sum())
+
+
+def accumulator_case(label, labels, num_bins, min_r, max_r, rate):
+    """Kernel A against its plain version (the cascade, or the per-offset
+    sums for a span not divisible by 5) at these labels: exactly equal,
+    with the call's time, the plain version's and the bound."""
+    from img2sgf_tpu_torch.hough import accumulator_cuda as acc
+
+    plain = (acc.vote_accumulator_offsets if (max_r - min_r + 1) % 5
+             else acc.vote_accumulator_cascade_labels)
+    args = (labels, num_bins, min_r, max_r)
+    label = (f"{label} [" + ",".join(map(str, labels.shape))
+             + f"] r {min_r}-{max_r}")
+    err = check_equal(f"A {label}", acc.vote_accumulator_cuda(*args),
+                      plain(*args))
+    ms = cuda_ms(lambda: acc.vote_accumulator_cuda(*args), 10)
+    pms = cuda_ms(lambda: plain(*args), 1)
+    nbytes, votes = accumulator_work(*args)
+    b_ms, b_by = roofline(nbytes, votes, rate)
+    edges = int((labels < num_bins).sum())
+    log("kernels", f"A accumulator {label} {edges} edge pixels: equal, call "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms * 1e3:.2f} us ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {votes} votes)")
+    return dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                err=err, edges=edges, votes=votes, bytes=nbytes,
+                call=lambda: acc.vote_accumulator_cuda(*args))
+
+
+def accumulator_library(labels, num_bins, min_r, max_r):
+    """The yardstick of kernel A (on no path of the port): one
+    torch.nn.functional.conv2d over the one-hot labels [P, nb, H+2R, W+2R]
+    with the offset table as a [1, nb, 2R+1, 2R+1] weight, which computes
+    the same accumulator. cuDNN's TF32 is on (PyTorch's default, set here):
+    0/1 inputs and integer weights are exact in TF32. Returns (ms, max
+    |conv - kernel|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2sgf_tpu_torch.hough import accumulator_cuda as acc
+
+    start, entries, R = acc.vote_table(num_bins, min_r, max_r)
+    w = np.zeros((1, num_bins, 2 * R + 1, 2 * R + 1), np.float32)
+    for d in range(num_bins):
+        dy, dx, wt = entries[:, start[d]:start[d + 1]]
+        w[0, d, R - dy, R - dx] = wt  # out[y, x] reads in[y - dy, x - dx]
+    weight = torch.from_numpy(w).to(labels.device)
+    P, H, W = labels.shape
+    pad = F.pad(labels, (R, R, R, R), value=num_bins).long()
+    onehot = torch.zeros((P, num_bins + 1, H + 2 * R, W + 2 * R),
+                         dtype=torch.float32, device=labels.device)
+    onehot = onehot.scatter_(1, pad[:, None], 1.0)[:, :num_bins].contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv = F.conv2d(onehot, weight)[:, 0]
+        ms = cuda_ms(lambda: F.conv2d(onehot, weight), 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((conv - acc.vote_accumulator_cuda(
+        labels, num_bins, min_r, max_r)).abs().max())
+    log("kernels", f"A yardstick: conv2d of the one-hot labels "
+        f"[{P},{num_bins},{H + 2 * R},{W + 2 * R}] with the table as a "
+        f"[1,{num_bins},{2 * R + 1},{2 * R + 1}] weight (TF32): {ms:.3f} ms, "
+        f"max |conv - kernel| {err}")
+    return ms, err
+
+
 KERNEL_NAMES = {"K1": "hysteresis_kernel", "K2": "rescore_kernel",
-                "K3": "radius_kernel", "G": "greedy_kernel"}
+                "K3": "radius_kernel", "G": "greedy_kernel",
+                "A": "accumulator_kernel"}
 
 
 def profile_call(call, name, reps):
@@ -920,10 +1031,10 @@ def profile_call(call, name, reps):
 
 def phase_profile(kernels, reps=5):
     """Phase 7: torch.profiler over `reps` calls of each kernel's wrapper
-    at its main-path case (K3 and the greedy kernel: at each of their
+    at its main-path case (K3, the greedy kernel and A: at each of their
     cases): the device kernels and device-to-host copies of a call, and the
-    kernel's own device time. K1 must be one kernel and no copy per call,
-    K3 and the greedy kernel one kernel and no copy."""
+    kernel's own device time. K1, K3, the greedy kernel and A must each be
+    one kernel and no copy per call."""
     for k, name in KERNEL_NAMES.items():
         r = kernels[k]
         cases = r.get("cases") or [dict(label="main path", call=r["call"])]
@@ -937,7 +1048,7 @@ def phase_profile(kernels, reps=5):
                 f"launches ({n_mine:g} of {name}), {n_d2h:g} device-to-host "
                 f"copies; {name} device time {kernel_ms:.4f} ms; other "
                 f"kernels: {others}")
-            if k in ("K1", "K3", "G") and (n, n_mine, n_d2h) != (1, 1, 0):
+            if k in ("K1", "K3", "G", "A") and (n, n_mine, n_d2h) != (1, 1, 0):
                 raise AssertionError(f"{k} {label} is not one launch "
                                      "and no device read per call")
         r["kernel_ms"] = cases[0]["kernel_ms"]
@@ -992,11 +1103,13 @@ def phase_main_path(dev, rgb, stones, cfg):
     import torch
 
     from img2sgf_tpu_torch import choose_line_threshold, to_sgf
-    from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.hough import (
+        accumulator_cuda, greedy_cuda, radius_cuda, rescore_cuda)
     from img2sgf_tpu_torch.ops import hysteresis_cuda
     from img2sgf_tpu_torch.pipeline import detect_board
 
-    counters = (hysteresis_cuda, rescore_cuda, radius_cuda, greedy_cuda)
+    counters = (hysteresis_cuda, rescore_cuda, radius_cuda, greedy_cuda,
+                accumulator_cuda)
     thr = choose_line_threshold(rgb.shape[0], rgb.shape[1])
 
     # the counted main-path run
@@ -1190,8 +1303,9 @@ def no_sync(label, fn):
 def phase_post(dev, cfg, rgb, batch, recorded, stage_ms):
     """Phase 5e: the post stage, one pass over a batch (_post_circles) at
     the recorded inputs of the 768^2 main path, the 16-image bucket batch
-    and the 32-image 512^2 batch: a warm pass and a warm greedy_min_dist
-    call make no host synchronisation (set_sync_debug_mode "error"); the
+    and the 32-image 512^2 batch: a warm pass, a warm greedy_min_dist call
+    and a warm kernel A call make no host synchronisation
+    (set_sync_debug_mode "error"); the
     warm pass's wall (host clock to a sync) and CUDA-event time, median of
     5, beside the post stage's ms from timings= (stage_ms), and the CUDA-
     event ms of its erase_circles alone (mean of 5); then the host
@@ -1200,7 +1314,7 @@ def phase_post(dev, cfg, rgb, batch, recorded, stage_ms):
     import torch
 
     from img2sgf_tpu_torch import choose_line_threshold
-    from img2sgf_tpu_torch.hough import greedy_cuda
+    from img2sgf_tpu_torch.hough import accumulator_cuda, greedy_cuda
     from img2sgf_tpu_torch.hough.erase import erase_circles
     from img2sgf_tpu_torch.pipeline import detect as pdetect
     from img2sgf_tpu_torch.pipeline import detect_board, detect_board_bucket_batch
@@ -1233,7 +1347,11 @@ def phase_post(dev, cfg, rgb, batch, recorded, stage_ms):
             f"alone {out[label]['erase_event_ms']:.2f} ms (CUDA events)")
     (gargs, _), = recorded["single"]["G"]
     no_sync("greedy_min_dist", lambda: greedy_cuda.greedy_min_dist(*gargs))
-    log("post", "a warm greedy_min_dist call: no host synchronisation")
+    (aargs, _), = recorded["single"]["A"]
+    no_sync("vote_accumulator_cuda",
+            lambda: accumulator_cuda.vote_accumulator_cuda(*aargs))
+    log("post", "a warm greedy_min_dist call and a warm kernel A call: no "
+        "host synchronisation")
 
     thr = choose_line_threshold(*rgb.shape[:2])
     canvases, hs, ws, ths = bucket([im for im, _ in batch])
@@ -1344,11 +1462,13 @@ def phase_hough(dev, rgb, cfg):
 
 
 def phase_accumulator(dev, rgb, cfg):
-    """Phase 9: the per-offset accumulator (radius span 31) on the 768^2
-    diagram's 8 unique planes under torch.profiler, beside the cascade
-    (span 30) on the same labels: wall and device busy ms of one warm call."""
+    """Phase 9: the plain per-offset accumulator (radius span 31) on the
+    768^2 diagram's 8 unique planes under torch.profiler, beside the plain
+    cascade (span 30) on the same labels and kernel A with each table:
+    wall and device busy ms of one warm call."""
     import torch
 
+    from img2sgf_tpu_torch.hough.accumulator_cuda import vote_accumulator_cuda
     from img2sgf_tpu_torch.hough.circles import (
         circle_plane_state_pool, vote_accumulator_cascade_labels,
         vote_accumulator_offsets)
@@ -1362,7 +1482,9 @@ def phase_accumulator(dev, rgb, cfg):
     out = {}
     nb = cfg.num_angle_bins
     for name, fn in (("offsets_r1_31", lambda: vote_accumulator_offsets(lbl, nb, 1, 31)),
-                     ("cascade_r1_30", lambda: vote_accumulator_cascade_labels(lbl, nb, 1, 30))):
+                     ("cascade_r1_30", lambda: vote_accumulator_cascade_labels(lbl, nb, 1, 30)),
+                     ("kernel_r1_31", lambda: vote_accumulator_cuda(lbl, nb, 1, 31)),
+                     ("kernel_r1_30", lambda: vote_accumulator_cuda(lbl, nb, 1, 30))):
         wall_ms, busy_ms, n, top = device_busy(fn, top=2)
         out[name] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                          device_events=n)
@@ -1374,7 +1496,7 @@ def phase_accumulator(dev, rgb, cfg):
 
 
 COUNTERS = {"K1": "hysteresis_cuda", "K2": "rescore_cuda", "K3": "radius_cuda",
-            "G": "greedy_cuda"}
+            "G": "greedy_cuda", "A": "accumulator_cuda"}
 
 
 @contextlib.contextmanager
@@ -1388,14 +1510,15 @@ def counted(out: dict):
     a warm replay's kernels from the profile."""
     import torch
 
-    from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
+    from img2sgf_tpu_torch.hough import (
+        accumulator_cuda, greedy_cuda, radius_cuda, rescore_cuda)
     from img2sgf_tpu_torch.ops import hysteresis_cuda
     from img2sgf_tpu_torch.pipeline import graphs
 
     graphs.clear()
 
     mods = {"K1": hysteresis_cuda, "K2": rescore_cuda, "K3": radius_cuda,
-            "G": greedy_cuda}
+            "G": greedy_cuda, "A": accumulator_cuda}
     for m in mods.values():
         m.launches = 0
         m.plain_calls = 0
@@ -1408,15 +1531,17 @@ def counted(out: dict):
 
 
 def check_batch_launches(launches, label):
-    """One batch makes 2 K1 calls (outer and internal Canny), 2 K2, 1 K3
-    and 1 greedy launch, plus 2 K2, 1 K3 and 1 greedy launch when a plane
-    saturates (and in the warm-up of a graphed path's first call, which
-    runs one rerun chunk), whatever its size."""
+    """One batch makes 2 K1 calls (outer and internal Canny), 2 K2, 1 K3,
+    1 greedy and 1 accumulator (A) launch, plus 2 K2, 1 K3 and 1 greedy
+    launch when a plane saturates (and in the warm-up of a graphed path's
+    first call, which runs one rerun chunk; the rerun reuses the plane
+    state), whatever its size."""
     k1, k2, k3 = launches["K1"], launches["K2"], launches["K3"]
-    if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3 or launches["G"] != k3:
+    if k1 != 2 or k3 not in (1, 2) or k2 != 2 * k3 or launches["G"] != k3 \
+            or launches["A"] != 1:
         raise AssertionError(f"{label}: launches {launches}, expected K1 2, "
-                             "K2 2, K3 1 and G 1 (plus 2, 1 and 1 with a "
-                             "rerun)")
+                             "K2 2, K3 1, G 1 and A 1 (plus 2, 1 and 1 with "
+                             "a rerun)")
 
 
 def check_stones(res, i, stones, n_lines, label):
@@ -1879,9 +2004,10 @@ def phase_sharded(dev, cfg, batch, small, jpegs):
         res = two(canvases, ths, hs, ws)
     threads = calls["threads"]
     if launches["K1"] != 4 or launches["K3"] not in (2, 3, 4) \
-            or launches["K2"] != 2 * launches["K3"]:
+            or launches["K2"] != 2 * launches["K3"] or launches["A"] != 2:
         raise AssertionError(f"two shards' launches {launches}, expected K1 4, "
-                             "K2 4 and K3 2 (plus 2 and 1 a shard with a rerun)")
+                             "K2 4, K3 2 and A 2 (plus 2 K2 and 1 K3 a shard "
+                             "with a rerun)")
     if any(len(t) != 2 for t in threads.values()):
         raise AssertionError("K1-K3 not called from both worker threads: "
                              f"{ {k: len(t) for k, t in threads.items()} }")
@@ -2249,6 +2375,10 @@ def main() -> int:
         # not a Pallas kernel: the JAX package's device fori_loop
         "G": ("greedy_min_dist", "img2sgf_tpu_torch/csrc/greedy.cu",
               "img2sgf_tpu/hough/circles.py:823"),
+        # not a Pallas kernel: the JAX package's lax.map over
+        # vote_accumulator_packed4 (and the per-offset chain, :299-347)
+        "A": ("vote_accumulator", "img2sgf_tpu_torch/csrc/accumulator.cu",
+              "img2sgf_tpu/hough/circles.py:278"),
     }
     rows = []
     for k, (name, src, rep) in meta.items():
@@ -2275,6 +2405,18 @@ def main() -> int:
             row["cases"] = [{f: c[f] for f in fields + ("max_r", "wanted")}
                             for c in r["cases"]]
             row["overflow_rerun_wall_ms"] = rerun_ms
+        if k == "A":
+            row["label"] = r["label"]
+            row["replaces_note"] = (
+                "not a Pallas kernel: the lax.map over vote_accumulator_packed4"
+                " (img2sgf_tpu/hough/circles.py:278-296) and the per-offset "
+                "chain (:299-347)")
+            row["library_ms"] = r["library_ms"]
+            row["library_call"] = ("torch.nn.functional.conv2d over the "
+                                   "one-hot labels, TF32 (768^2 main path)")
+            row["library_max_abs_err"] = r["library_err"]
+            row["cases"] = [{f: c[f] for f in fields + (
+                "edges", "votes", "bytes")} for c in r["cases"]]
         if k == "G":
             row["label"], row["steps"] = r["label"], r["steps"]
             row["cases"] = [{f: c[f] for f in fields + (

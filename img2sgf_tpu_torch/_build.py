@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in csrc/.
 
-All csrc/*.cu files are compiled with nvcc into one shared library with a
-plain C interface, keyed by a hash of the sources and flags and cached in
-_build/ beside this file, then bound with ctypes. Nothing here runs at
+Each csrc/*.cu file is compiled by an nvcc of its own, all started at
+once, and the objects are linked into one shared library with a plain C
+interface, keyed by a hash of the sources and flags and cached in _build/
+beside this file, then bound with ctypes. Nothing here runs at
 import time: the first kernel launch builds the library, so machines
 without nvcc can still import every module and run the plain versions.
 """
@@ -24,8 +25,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,11 +50,13 @@ _SIGNATURES = {
                        _I, _I, _I, _P),
     # ys, xs, live, accepted, P, K, max_out, md2, idx64, stream
     "img2sgf_greedy": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # labels, start, entries, E, out, P, H, W, nb, halo, stream
+    "img2sgf_accumulator": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the nvcc run in this process, if any
+build_seconds = None  # wall time of the nvcc runs in this process, if any
 # Held while a wrapper adds to its module's launch or plain-call count, so
 # that threads launching at once (the sharded detector's workers) lose none.
 # A call captured into a CUDA graph launches nothing and counts nothing
@@ -109,7 +113,28 @@ def build_once(path: pathlib.Path, command) -> float | None:
 
 def library_path() -> pathlib.Path:
     key = b"".join(src.name.encode() + src.read_bytes() for src in _sources())
-    return cached_path("libimg2sgf_kernels", key + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join(NVCC_FLAGS) + " | " + " ".join(LINK_FLAGS)
+    return cached_path("libimg2sgf_kernels", key + flags.encode())
+
+
+def _compile_objects(tmp: str) -> list[str]:
+    """Compile every source to an object in tmp, one nvcc process each, all
+    running at once; raises RuntimeError naming every source that failed."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(tmp, src.stem + ".o")
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for _, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(proc.args) + "\n" + out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return [obj for obj, _ in jobs]
 
 
 def load() -> ctypes.CDLL:
@@ -119,10 +144,13 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         path = library_path()
-        seconds = build_once(
-            path, lambda: [_nvcc(), *NVCC_FLAGS, *map(str, _sources())])
-        if seconds is not None:
-            build_seconds = seconds
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            linked = build_once(
+                path, lambda: [_nvcc(), *LINK_FLAGS, *_compile_objects(tmp)])
+        if linked is not None:
+            build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -8,9 +8,11 @@ dead-chunk skipping, the counting top-k search) are replaced by the plainest
 tensor code that gives the same output. The exact-vote rescore and the
 radius histogram run through kernels K2 and K3 on the card
 (hough/rescore_cuda.py, hough/radius_cuda.py, which also hold their plain
-versions and the radius tables _hist10_tables and _hist10_scan), and the
-greedy minimum-distance selection, a device loop in the JAX package,
-through a kernel of its own (hough/greedy_cuda.py).
+versions and the radius tables _hist10_tables and _hist10_scan). The
+centre-vote accumulator and the greedy minimum-distance selection, device
+loops in the JAX package, run through kernels of their own
+(hough/accumulator_cuda.py, which also holds the accumulators' plain
+versions and offset tables, and hough/greedy_cuda.py).
 
 The single-image functions of the JAX package's diagnostic tools
 (circle_plane_state, circle_propose, vote_accumulator,
@@ -32,6 +34,9 @@ from ..ops.canny import canny_pool
 from ..ops.common import border_remap, shift2d
 from ..ops.sobel import sobel3
 from . import _bin_exceptions as _bx
+from .accumulator_cuda import (  # noqa: F401 (_cascade_tables: re-exported)
+    _cascade_tables, check_labels, vote_accumulator_cascade_labels,
+    vote_accumulator_cuda, vote_accumulator_offsets)
 from .greedy_cuda import greedy_min_dist
 from .radius_cuda import radius_support_pool
 from .rescore_cuda import exact_rescore
@@ -49,31 +54,6 @@ __all__ = [
 ]
 
 _INT32_MAX = 2 ** 31 - 1
-
-
-def _cascade_tables(num_bins: int, min_r: int, max_r: int, seg: int = 5):
-    """Static offset tables for the two-level cascade accumulator (verbatim
-    from the JAX package): per bin, centred inner offsets round(j*u) for
-    j in [-seg//2, seg//2] and outer offsets +-round(t_m*u) per segment."""
-    n = max_r - min_r + 1
-    assert n % seg == 0, "radius span must divide into whole segments"
-    half = seg // 2
-    inner, outer = [], []
-    for d in range(num_bins):
-        phi = d * math.pi / num_bins
-        ux, uy = math.cos(phi), math.sin(phi)
-        inner.append(
-            [(int(np.round(j * uy)), int(np.round(j * ux)))
-             for j in range(-half, half + 1)]
-        )
-        outs = []
-        for m in range(n // seg):
-            t = min_r + half + m * seg
-            by, bx = int(np.round(t * uy)), int(np.round(t * ux))
-            outs.append((by, bx))
-            outs.append((-by, -bx))
-        outer.append(outs)
-    return inner, outer
 
 
 @device_cache(maxsize=64)
@@ -155,49 +135,19 @@ def pixel_steps(dx, dy):
     return sx, sy
 
 
-def _walk_offsets(ux: float, uy: float, min_r: int, max_r: int):
-    """Exact OpenCV vote-walk offsets for direction (ux, uy), both ways
-    (verbatim from the JAX package): the cell of step r is
-    floor(r*s*sx/1024) with sx = round(1024*ux) (not the negation for the -
-    direction). Duplicate cells get several votes: (dy, dx) -> weight."""
-    sx = round(1024 * ux)
-    sy = round(1024 * uy)
-    weights: dict[tuple[int, int], int] = {}
-    for sign in (1, -1):
-        for r in range(min_r, max_r + 1):
-            o = (math.floor(sign * r * sy / 1024), math.floor(sign * r * sx / 1024))
-            weights[o] = weights.get(o, 0) + 1
-    return weights
-
-
-def vote_accumulator_offsets(labels, num_bins: int, min_r: int, max_r: int):
-    """Exact per-offset centre-vote accumulator over a pool of [P, H, W]
-    direction labels: per bin, the bin's edge plane shifted to every cell of
-    the exact fixed-point walk (_walk_offsets) and added with its weight.
-    The JAX package's vote_accumulator for radius spans that do not divide
-    into segments of 5; its float32 chain adds integers below 2^24, so the
-    int32 sums here equal it. Returns f32."""
-    P, H, W = labels.shape
-    pad = max_r
-    lab = torch.nn.functional.pad(labels.to(torch.int32),
-                                  (pad, pad, pad, pad), value=num_bins)
-    acc = torch.zeros((P, H, W), dtype=torch.int32, device=labels.device)
-    step = math.pi / num_bins
-    for d in range(num_bins):
-        e_d = (lab == d).to(torch.int32)
-        phi = d * step
-        for (oy, ox), w in _walk_offsets(math.cos(phi), math.sin(phi), min_r,
-                                         max_r).items():
-            acc.add_(e_d[:, pad - oy:pad - oy + H, pad - ox:pad - ox + W],
-                     alpha=w)
-    return acc.to(torch.float32)
-
-
 def vote_accumulator_pool_labels(labels, num_bins: int, min_r: int, max_r: int):
     """Centre-vote accumulator over a pool of [P, H, W] direction labels:
     the cascade when the radius span divides into segments of 5, the exact
     per-offset accumulator otherwise, as the JAX package's vote_accumulator
-    chooses. Returns f32."""
+    chooses. Returns f32. CPU labels take the plain versions; CUDA labels
+    launch kernel A with the cascade's or the per-offset offset table
+    (accumulator_cuda.vote_table)."""
+    check_labels(labels, num_bins)
+    dev = labels.device
+    if dev.type == "cuda":
+        return vote_accumulator_cuda(labels, num_bins, min_r, max_r)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
     if (max_r - min_r + 1) % 5:
         return vote_accumulator_offsets(labels, num_bins, min_r, max_r)
     return vote_accumulator_cascade_labels(labels, num_bins, min_r, max_r)
@@ -207,6 +157,9 @@ def vote_accumulator_pool(emask, dx, dy, num_bins: int, min_r: int,
                           max_r: int):
     """Accumulators of a pool of [P, H, W] planes from their edge masks and
     Sobel gradients (the JAX package's vote_accumulator_pool)."""
+    devs = {t.device for t in (emask, dx, dy)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
     return vote_accumulator_pool_labels(
         direction_labels(emask, dx, dy, num_bins), num_bins, min_r, max_r)
 
@@ -217,32 +170,6 @@ def vote_accumulator(edge_mask, dx, dy, num_bins: int, min_r: int, max_r: int):
     gradients (vote_accumulator_pool of a pool of one)."""
     return vote_accumulator_pool(edge_mask[None], dx[None], dy[None], num_bins,
                                  min_r, max_r)[0]
-
-
-def vote_accumulator_cascade_labels(labels, num_bins: int, min_r: int,
-                                    max_r: int):
-    """Approximate centre-vote accumulator over a pool of [P, H, W] direction
-    labels (direction_labels): per bin, a partial plane of the `seg` inner
-    shifts, sampled at the outer segment offsets. Exact integer sums, equal
-    to the JAX package's vote_accumulator_cascade and its byte-packed pool
-    version. Returns f32."""
-    P, H, W = labels.shape
-    inner, outer = _cascade_tables(num_bins, min_r, max_r)
-    B = max_r
-    pad = B + 3
-    lab = torch.nn.functional.pad(labels.to(torch.int32),
-                                  (pad, pad, pad, pad), value=num_bins)
-    acc = torch.zeros((P, H, W), dtype=torch.int32, device=labels.device)
-    for d in range(num_bins):
-        e_d = (lab == d).to(torch.int32)
-        part = None
-        for (jy, jx) in inner[d]:
-            y0, x0 = pad - B - jy, pad - B - jx
-            t = e_d[:, y0:y0 + H + 2 * B, x0:x0 + W + 2 * B]
-            part = t if part is None else part + t
-        for (by, bx) in outer[d]:
-            acc += part[:, B - by:B - by + H, B - bx:B - bx + W]
-    return acc.to(torch.float32)
 
 
 def _stable_argsort(x, descending: bool = False):

@@ -13,7 +13,8 @@ import torch
 
 from chip_smoke import greedy_cases, staircase_plane
 from img2sgf_tpu_torch.config import DetectionConfig
-from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
+from img2sgf_tpu_torch.hough import (
+    accumulator_cuda, greedy_cuda, radius_cuda, rescore_cuda)
 from img2sgf_tpu_torch.ops import hysteresis_cuda
 from img2sgf_tpu_torch.ops.canny import pack_planes
 from img2sgf_tpu_torch.pipeline import detect_board, detect_board_bucket_batch
@@ -473,6 +474,126 @@ def test_greedy_large_max_out(dev):
     assert torch.equal(got, want) and int(got.sum()) > 8000
 
 
+def _acc_labels(seed, shape, num_bins, density, one_bin=None):
+    """Seeded labels on the card: edge pixels of random bins (or all of
+    one_bin) at the given density, the num_bins sentinel elsewhere."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, num_bins, shape).astype(np.uint8)
+    if one_bin is not None:
+        lab[:] = one_bin
+    lab[rng.random(shape) >= density] = num_bins
+    return torch.from_numpy(lab).cuda()
+
+
+def _acc_plain(lab, num_bins, min_r, max_r):
+    if (max_r - min_r + 1) % 5:
+        return accumulator_cuda.vote_accumulator_offsets(lab, num_bins, min_r,
+                                                         max_r)
+    return accumulator_cuda.vote_accumulator_cascade_labels(lab, num_bins,
+                                                            min_r, max_r)
+
+
+def _acc_check(lab, num_bins, min_r, max_r):
+    """Kernel A equals its plain version exactly, in one launch."""
+    before = accumulator_cuda.launches
+    got = accumulator_cuda.vote_accumulator_cuda(lab, num_bins, min_r, max_r)
+    assert accumulator_cuda.launches == before + 1
+    want = _acc_plain(lab, num_bins, min_r, max_r)
+    assert got.dtype == torch.float32 and torch.equal(got, want), \
+        float((got - want).abs().max())
+    return got
+
+
+# (shape, num_bins, min_r, max_r, density, one bin): 6 % edges, every pixel
+# an edge of one bin (the 135-degree bin, whose votes crowd a diagonal),
+# 254 bins, r = 0, max_r 60, per-offset spans (31, and 68 with a 70-px
+# halo), one plane, 130 planes, sizes that are no multiple of the 64 x 128
+# tile, and the 1280 class
+ACC_CASES = {
+    "6% [8,300,420]": ((8, 300, 420), 64, 1, 30, 0.06, None),
+    "100% one bin [2,256,256]": ((2, 256, 256), 64, 1, 30, 1.0, 48),
+    "254 bins": ((3, 200, 260), 254, 1, 30, 0.1, None),
+    "min_r 0": ((3, 200, 260), 64, 0, 29, 0.1, None),
+    "max_r 60": ((3, 200, 260), 64, 1, 60, 0.1, None),
+    "per-offset span 31": ((3, 200, 260), 64, 1, 31, 0.1, None),
+    "per-offset span 68": ((2, 200, 260), 64, 3, 70, 0.1, None),
+    "P=1 [1,77,131]": ((1, 77, 131), 64, 1, 30, 0.1, None),
+    "P=130 [130,70,135]": ((130, 70, 135), 64, 1, 30, 0.06, None),
+    "1280 [2,1280,1280]": ((2, 1280, 1280), 64, 1, 30, 0.06, None),
+}
+
+
+@pytest.mark.parametrize("case", list(ACC_CASES))
+def test_accumulator_equals_plain(dev, case):
+    shape, nb, lo, hi, density, one = ACC_CASES[case]
+    got = _acc_check(_acc_labels(len(case), shape, nb, density, one), nb, lo,
+                     hi)
+    assert float(got.max()) > 0
+
+
+def test_accumulator_on_the_diagram(dev):
+    """The 768^2 smoke diagram's 8 label planes, with the cascade and the
+    per-offset table; the dispatcher launches the kernel and calls no plain
+    version."""
+    from chip_smoke import render_diagram
+    from img2sgf_tpu_torch.hough import circles
+    from img2sgf_tpu_torch.pipeline.detect import _pre_circles, _variant_dedup
+
+    cfg = DetectionConfig()
+    rgb, _ = render_diagram()
+    v = _pre_circles(torch.from_numpy(rgb).to(dev)[None], cfg)[2][0]
+    keep, _ = _variant_dedup(cfg, v.shape[0])
+    lbl = circles.circle_plane_state_pool(
+        v[keep], cfg.circle_canny_high, 1, 30, cfg.num_angle_bins,
+        cfg.hysteresis_iters, with_acc=False)["lbl"]
+    assert lbl.shape == (8, 768, 768)
+    for lo, hi in ((1, 30), (1, 31)):
+        got = _acc_check(lbl, cfg.num_angle_bins, lo, hi)
+        plain = accumulator_cuda.plain_calls
+        before = accumulator_cuda.launches
+        assert torch.equal(circles.vote_accumulator_pool_labels(
+            lbl, cfg.num_angle_bins, lo, hi), got)
+        assert accumulator_cuda.launches == before + 1
+        assert accumulator_cuda.plain_calls == plain
+
+
+def test_accumulator_capture_and_replay(dev):
+    """Kernel A captured into a CUDA graph: the capture counts no launch,
+    and each replay computes from the static input's current labels."""
+    a = _acc_labels(1, (3, 150, 200), 64, 0.08)
+    b = _acc_labels(2, (3, 150, 200), 64, 0.08)
+    static = a.clone()
+    accumulator_cuda.vote_accumulator_cuda(static, 64, 1, 30)  # the table
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = accumulator_cuda.launches
+    with torch.cuda.graph(graph):
+        out = accumulator_cuda.vote_accumulator_cuda(static, 64, 1, 30)
+    assert accumulator_cuda.launches == before
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _acc_plain(a, 64, 1, 30))
+    static.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _acc_plain(b, 64, 1, 30))
+
+
+def test_accumulator_makes_no_sync(dev):
+    """A warm call synchronises nothing (sync debug mode "error")."""
+    lab = _acc_labels(4, (4, 128, 160), 64, 0.1)
+    accumulator_cuda.vote_accumulator_cuda(lab, 64, 1, 31)
+    torch.cuda.synchronize()
+    before = accumulator_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = accumulator_cuda.vote_accumulator_cuda(lab, 64, 1, 31)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert accumulator_cuda.launches == before + 1
+    assert torch.equal(out, _acc_plain(lab, 64, 1, 31))
+
+
 def test_device_keyed_tables_name_the_card(dev):
     """The device-keyed table caches are keyed by str(tensor.device), which
     names the card's index, so each card keeps its own entry."""
@@ -487,9 +608,9 @@ def _cards(n_min=2):
 
 
 def test_kernels_launch_on_the_tensors_card(dev):
-    """K1, K2 and K3 on tensors of the last card, called while the thread's
-    current device is card 0: each launches on its tensors' card and equals
-    its plain version there."""
+    """K1, K2, K3 and A on tensors of the last card, called while the
+    thread's current device is card 0: each launches on its tensors' card
+    and equals its plain version there."""
     last = _cards()[-1]
     rng = np.random.default_rng(3)
     pairs = [staircase_plane(rng, 120, 700) for _ in range(8)]
@@ -506,8 +627,11 @@ def test_kernels_launch_on_the_tensors_card(dev):
         h = hysteresis_cuda.hysteresis_packed(e0, gate, 256)
         r2 = rescore_cuda.exact_rescore(*k2, cells=5)
         r3 = radius_cuda.radius_support_pool(*k3)
+        lab = _acc_labels(5, (3, 90, 140), 64, 0.1).to(last)
+        ra = accumulator_cuda.vote_accumulator_cuda(lab, 64, 1, 30)
     torch.cuda.synchronize(last)
-    assert h.device == r2.device == r3[0].device == last
+    assert h.device == r2.device == r3[0].device == ra.device == last
+    assert torch.equal(ra, _acc_plain(lab, 64, 1, 30))
     assert torch.equal(h, hysteresis_cuda.hysteresis_packed_plain(e0, gate, 256))
     assert torch.equal(r2, rescore_cuda.exact_rescore_plain(*k2, cells=5))
     plain = radius_cuda.radius_support_pool_plain(*k3)
@@ -643,6 +767,7 @@ def test_graph_outlives_evicted_constants(dev):
     want = eager(dev)
     _equal_results(graphed(dev), want, "captured")
     for fn in (rescore_cuda._rhat_on, radius_cuda._tables_on,
+               accumulator_cuda._table_on,
                lines._vote_bins, circles._bin_exceptions_on,
                circles._centre_on, circles._ring_on):
         fn.cache_clear()

@@ -1,15 +1,17 @@
 """chip_smoke.py's roofline work counts (k2_walk_steps, k2_bytes, k3_work,
-greedy_work) against brute-force loops over small seeded inputs: each
-kernel's bound counts only the pixels, steps and candidates its inputs
-need."""
+greedy_work, accumulator_work) against brute-force loops over small seeded
+inputs: each kernel's bound counts only the pixels, steps and candidates its
+inputs need."""
 
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (
-    GREEDY_OPS_PER_TEST, greedy_work, k2_bytes, k2_walk_steps, k3_work)
-from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
+    GREEDY_OPS_PER_TEST, accumulator_work, greedy_work, k2_bytes, k2_walk_steps,
+    k3_work)
+from img2sgf_tpu_torch.hough import (
+    accumulator_cuda, greedy_cuda, radius_cuda, rescore_cuda)
 
 T = torch.from_numpy
 
@@ -132,3 +134,22 @@ def test_greedy_work(dtype):
         T(ys), T(xs), T(live), 3.0, max_out), T(accepted))
     assert greedy_work(T(ys), T(xs), T(live), T(accepted), max_out) == want
     assert want[2] == K
+
+
+@pytest.mark.parametrize("case", [(64, 1, 30), (48, 1, 31), (64, 0, 29)],
+                         ids=str)
+def test_accumulator_counts(case):
+    """accumulator_work's votes: a loop over every edge pixel adding its
+    bin's table weights; bytes: the labels, the float32 output and the
+    table, once each."""
+    nb, lo, hi = case
+    rng = np.random.default_rng(sum(case))
+    lab = rng.integers(0, nb + 3, (2, 13, 17)).astype(np.uint8)  # > nb: no vote
+    start, entries, _ = accumulator_cuda.vote_table(nb, lo, hi)
+    votes = 0
+    for v in lab.reshape(-1):
+        if v < nb:
+            votes += int(sum(entries[2, start[v]:start[v + 1]]))
+    nbytes = lab.size + 4 * lab.size + 4 * (nb + 1) + 12 * entries.shape[1]
+    assert accumulator_work(T(lab), nb, lo, hi) == (nbytes, votes)
+    assert votes == 2 * (hi - lo + 1) * int((lab < nb).sum())
