@@ -120,7 +120,8 @@ counted call is its first, whose warm-up runs the segments eagerly (one
 overflow chunk included) before the capture, which launches nothing.
 
 Then one JSON line with each kernel's launches (by path), error, times and
-bound (K2 and K3 at r = 0 in rows of their own), one with the batch
+bound (K2 and K3 at r = 0 in rows of their own; the greedy kernel's rows
+also give its kernel time a dependent step, us_per_step), one with the batch
 throughputs (the sharded ones included), the config variants' walls and the
 accumulators' device times, one with the post stage's times and the host
 synchronisations (phase 5e), one with
@@ -902,6 +903,13 @@ def greedy_case(label, args):
     return dict(label=label, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                 err=err, steps=steps, live=int(live.sum()), bytes=nbytes,
                 operations=ops, call=lambda a=args: greedy_cuda.greedy_min_dist(*a))
+
+
+def us_per_step(case):
+    """The greedy kernel's device time a dependent step (the measure its
+    design moves), in microseconds: None for a case with no live
+    candidate."""
+    return case["kernel_ms"] * 1e3 / case["steps"] if case["steps"] else None
 
 
 def accumulator_work(labels, num_bins, min_r, max_r):
@@ -2419,9 +2427,10 @@ def main() -> int:
                 "edges", "votes", "bytes")} for c in r["cases"]]
         if k == "G":
             row["label"], row["steps"] = r["label"], r["steps"]
-            row["cases"] = [{f: c[f] for f in fields + (
-                "steps", "live", "bytes", "operations")}
-                            for c in r["cases"]]
+            row["us_per_step"] = us_per_step(r)
+            row["cases"] = [{**{f: c[f] for f in fields + (
+                "steps", "live", "bytes", "operations")},
+                "us_per_step": us_per_step(c)} for c in r["cases"]]
         rows.append(row)
     # K2 (cells 5 and 3) and K3 at circle_min_radius = 0, rows of their own
     r0_path = f"detect_board {SIZE} {MIN_R0}"

@@ -50,8 +50,10 @@ _SIGNATURES = {
                        _I, _I, _I, _P),
     # ys, xs, live, accepted, P, K, max_out, md2, idx64, stream
     "img2sgf_greedy": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # labels, start, entries, E, out, P, H, W, nb, halo, stream
-    "img2sgf_accumulator": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # labels, start, entries, E, ext, out, P, H, W, nb, ymin, ymax, xmin,
+    # xmax, stream
+    "img2sgf_accumulator": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P),
 }
 
 _lock = threading.Lock()

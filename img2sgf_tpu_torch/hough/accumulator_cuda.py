@@ -16,7 +16,9 @@ and pixels outside the plane never vote. For the cascade the table is the
 merged multiset of (by + jy, bx + jx) over _cascade_tables' outer (by, bx)
 and inner (jy, jx) offsets; for the per-offset chain it is _walk_offsets.
 Every count is an integer below 2^24, so the kernel's int32 sums equal the
-plain versions bit for bit. A call is one launch and no device read.
+plain versions bit for bit. The kernel also takes each bin's span
+(vote_extents) to skip the edge pixels that cannot reach a tile. A call is
+one launch and no device read.
 """
 
 from __future__ import annotations
@@ -162,14 +164,46 @@ def vote_table(num_bins: int, min_r: int, max_r: int):
     return start, entries, halo
 
 
+# Kernel A packs a staged pixel's (y, x) relative to its tile, and each
+# vote's target, into two 15-bit halves of a word, so it takes offset
+# tables whose largest |offset| (vote_table's halo) is below this
+MAX_HALO = 8000
+
+
+@functools.lru_cache(maxsize=32)
+def vote_extents(num_bins: int, min_r: int, max_r: int):
+    """The spans of vote_table's offsets: (ext, bounds). ext [num_bins, 4]
+    int16 holds each bin's (dymin, dymax, dxmin, dxmax), saturated to int16
+    (exact below MAX_HALO): an edge pixel of bin d reaches only [y + dymin,
+    y + dymax] x [x + dxmin, x + dxmax]. An
+    empty bin gets an empty span (min 32767, max -32768). bounds is (ymin,
+    ymax, xmin, xmax) over all entries ((0, 0, 0, 0) for an empty table).
+    Host numpy, read-only."""
+    start, entries, _ = vote_table(num_bins, min_r, max_r)
+    ext = np.tile(np.array([32767, -32768, 32767, -32768], np.int64),
+                  (num_bins, 1))
+    for d in range(num_bins):
+        dy, dx = entries[:2, start[d]:start[d + 1]]
+        if dy.size:
+            ext[d] = dy.min(), dy.max(), dx.min(), dx.max()
+    ext = np.clip(ext, -32768, 32767).astype(np.int16)
+    bounds = ((int(entries[0].min()), int(entries[0].max()),
+               int(entries[1].min()), int(entries[1].max()))
+              if entries.size else (0, 0, 0, 0))
+    ext.setflags(write=False)
+    return ext, bounds
+
+
 @device_cache(maxsize=16)
 def _table_on(num_bins: int, min_r: int, max_r: int, device: str):
-    """vote_table on a device, uploaded once per card: (start, entries,
-    halo). `device` is str(tensor.device), which names the card
-    ("cuda:1")."""
-    start, entries, halo = vote_table(num_bins, min_r, max_r)
+    """vote_table and vote_extents on a device, uploaded once per card:
+    (start, entries, ext, bounds). `device` is str(tensor.device), which
+    names the card ("cuda:1")."""
+    start, entries, _ = vote_table(num_bins, min_r, max_r)
+    ext, bounds = vote_extents(num_bins, min_r, max_r)
     return (torch.tensor(start, device=device),
-            torch.tensor(entries, device=device), halo)
+            torch.tensor(entries, device=device),
+            torch.tensor(ext, device=device), bounds)
 
 
 def check_labels(labels, num_bins: int):
@@ -191,12 +225,16 @@ def vote_accumulator_cuda(labels, num_bins: int, min_r: int, max_r: int):
     read."""
     global launches
     check_labels(labels, num_bins)
+    halo = vote_table(num_bins, min_r, max_r)[2]
+    if halo >= MAX_HALO:
+        raise ValueError(f"kernel A takes offsets below {MAX_HALO}; radii "
+                         f"{min_r}-{max_r} reach {halo}")
     if labels.device.type != "cuda":
         raise ValueError(f"kernel A takes CUDA labels, got {labels.device}")
-    lib = _build.load()
     P, H, W = labels.shape
-    start, entries, halo = _table_on(num_bins, min_r, max_r,
-                                     str(labels.device))
+    lib = _build.load()
+    start, entries, ext, (ymin, ymax, xmin, xmax) = _table_on(
+        num_bins, min_r, max_r, str(labels.device))
     lab = labels.contiguous()
     out = torch.empty((P, H, W), dtype=torch.float32, device=labels.device)
     if out.numel():
@@ -204,8 +242,8 @@ def vote_accumulator_cuda(labels, num_bins: int, min_r: int, max_r: int):
         with torch.cuda.device(out.device):
             err = lib.img2sgf_accumulator(
                 lab.data_ptr(), start.data_ptr(), entries.data_ptr(),
-                entries.shape[1], out.data_ptr(), P, H, W, num_bins, halo,
-                _build.stream_of(out))
+                entries.shape[1], ext.data_ptr(), out.data_ptr(), P, H, W,
+                num_bins, ymin, ymax, xmin, xmax, _build.stream_of(out))
         _build.check(err, "accumulator kernel")
         if _build.launching():
             with _build.count_lock:

@@ -7,9 +7,10 @@ overlap removal, which accepts the candidates of each plane in the given
 order unless an earlier accepted one lies closer than min_dist. It is not a
 Pallas kernel, but plain PyTorch on the card could only run it as a host
 loop or as several launches per candidate, so on the card it is a
-hand-written kernel: one block per plane, the accepted positions in shared
-memory, one block-wide OR per candidate (see the kernel's header). A call
-is one launch and no device read.
+hand-written kernel: one block per plane, the candidates 32 at a time,
+each tested at once against the stored acceptances and the batch's
+earlier candidates, then decided in order with bit masks (see the
+kernel's header). A call is one launch and no device read.
 """
 
 from __future__ import annotations

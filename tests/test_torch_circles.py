@@ -24,6 +24,8 @@ from img2sgf_tpu.hough.rescore_pallas import exact_rescore_pallas
 from img2sgf_tpu.pipeline import detect as jdetect
 
 from chip_smoke import greedy_cases
+from test_torch_greedy_walk import GEOMETRIES as GREEDY_GEOMETRIES
+from test_torch_greedy_walk import greedy_walk
 from img2sgf_tpu_torch.config import DetectionConfig
 from img2sgf_tpu_torch.hough import circles as tc
 from img2sgf_tpu_torch.hough import greedy_cuda, radius_cuda, rescore_cuda
@@ -593,54 +595,20 @@ def test_greedy_min_dist_edge_cases(case):
     assert got.any(), "no case should accept nothing at all"
 
 
-def greedy_emulate(ys, xs, live, min_dist, max_out, threads):
-    """numpy emulation of csrc/greedy.cu's block walk over one plane:
-    `threads` threads, slot s of the accepted buffer owned (tested and
-    written) by thread s % threads, the live length found from the last
-    live slot, candidates staged a tile of `threads` at a time, dead ones
-    skipped, and each clash decided by an OR over the threads' own
-    tests."""
-    K = live.shape[0]
-    md2 = np.float32(min_dist * min_dist)
-    ay = np.full(max_out, np.float32(-(2.0 ** 30)), np.float32)
-    ax = ay.copy()
-    owner = np.arange(max_out) % threads
-    n_live = max((i + 1 for i in range(K) if live[i]), default=0)
-    out = np.zeros(K, bool)
-    cnt = 0
-    for base in range(0, n_live, threads):
-        ty = ys[base:base + threads].astype(np.float32)
-        tx = xs[base:base + threads].astype(np.float32)
-        tl = live[base:base + threads]
-        for k in range(min(threads, n_live - base)):
-            if not tl[k]:
-                continue
-            dy = ay - ty[k]
-            dx = ax - tx[k]
-            hit = (dy * dy + dx * dx) < md2
-            per_thread = np.bincount(owner, hit, minlength=threads) > 0
-            take = not per_thread.any()  # __syncthreads_or
-            if take and cnt < max_out:
-                ay[cnt], ax[cnt] = ty[k], tx[k]  # by thread cnt % threads
-                cnt += 1
-            out[base + k] = take
-    return out
-
-
-@pytest.mark.parametrize("threads", [128, 3])
-def test_greedy_kernel_walk_equals_plain(threads):
-    """The kernel's block walk (greedy_emulate) equals the plain version on
-    every seeded case but K = 8192 (the JAX test above covers it): at the
-    kernel's 128 threads, and at 3, where each thread owns many slots and
-    a tile ends inside every run of acceptances."""
+@pytest.mark.parametrize("geometry", ["kernel", "tiny"])
+def test_greedy_kernel_walk_equals_plain(geometry):
+    """The kernel's batch walk (test_torch_greedy_walk.greedy_walk) equals
+    the plain version on every seeded case but K = 8192 (the JAX test above
+    covers it): at the kernel's 32 candidates a batch and 8 warps, and at
+    3 and 2, where a batch ends inside every run of acceptances."""
     for label, ys, xs, live, min_dist, max_out in GREEDY_CASES:
         if ys.shape[1] > 1024:
             continue
         want = greedy_cuda.greedy_min_dist_plain(T(ys), T(xs), T(live),
                                                  min_dist, max_out).numpy()
         for p in range(ys.shape[0]):
-            got = greedy_emulate(ys[p], xs[p], live[p], min_dist, max_out,
-                                 threads)
+            got, _ = greedy_walk(ys[p], xs[p], live[p], min_dist, max_out,
+                                 *GREEDY_GEOMETRIES[geometry])
             np.testing.assert_array_equal(got, want[p], err_msg=label)
 
 

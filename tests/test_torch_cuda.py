@@ -474,6 +474,71 @@ def test_greedy_large_max_out(dev):
     assert torch.equal(got, want) and int(got.sum()) > 8000
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_greedy_long_stored_prefix(dev, dtype):
+    """Planes whose stored prefix passes a thousand positions, one of them
+    stopped one past 1024 by max_out (1025), beside a plane whose live
+    candidates end early: equal to the plain version, one launch."""
+    rng = np.random.default_rng(29)
+    P, K = 4, 2500
+    ys = rng.integers(0, 700, (P, K))
+    xs = rng.integers(0, 700, (P, K))
+    live = rng.random((P, K)) < 0.95
+    live[2, 300:] = False
+    ys_t, xs_t = (torch.from_numpy(a).to(dev, dtype) for a in (ys, xs))
+    live_t = torch.from_numpy(live).to(dev)
+    for max_out in (1025, 1500):
+        before = greedy_cuda.launches
+        got = greedy_cuda.greedy_min_dist(ys_t, xs_t, live_t, 10.0, max_out)
+        assert greedy_cuda.launches == before + 1
+        want = greedy_cuda.greedy_min_dist_plain(ys_t, xs_t, live_t, 10.0,
+                                                 max_out)
+        assert torch.equal(got, want)
+        assert int(want[0].sum()) > 1100 and int(want[2].sum()) < 300
+
+
+def test_greedy_capture_and_replay(dev):
+    """The greedy kernel captured into a CUDA graph: the capture counts no
+    launch, and each replay computes from the static inputs' current
+    values."""
+    _, ys, xs, live, min_dist, max_out = GREEDY_CASES[-1]
+    rng = np.random.default_rng(5)
+    other = (rng.integers(0, 768, ys.shape), rng.integers(0, 768, ys.shape),
+             rng.random(ys.shape) < 0.6)
+    static = [torch.from_numpy(a).to(dev) for a in (ys, xs, live)]
+    greedy_cuda.greedy_min_dist(*static, min_dist, max_out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = greedy_cuda.launches
+    with torch.cuda.graph(graph):
+        out = greedy_cuda.greedy_min_dist(*static, min_dist, max_out)
+    assert greedy_cuda.launches == before
+    for inputs in ((ys, xs, live), other):
+        for t, a in zip(static, inputs):
+            t.copy_(torch.from_numpy(a))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, greedy_cuda.greedy_min_dist_plain(
+            *static, min_dist, max_out))
+
+
+def test_greedy_makes_no_sync(dev):
+    """A warm call synchronises nothing (sync debug mode "error")."""
+    _, ys, xs, live, min_dist, max_out = GREEDY_CASES[3]  # K = 8192
+    args = [torch.from_numpy(a).to(dev) for a in (ys, xs, live)]
+    greedy_cuda.greedy_min_dist(*args, min_dist, max_out)
+    torch.cuda.synchronize()
+    before = greedy_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = greedy_cuda.greedy_min_dist(*args, min_dist, max_out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert greedy_cuda.launches == before + 1
+    assert torch.equal(out, greedy_cuda.greedy_min_dist_plain(
+        *args, min_dist, max_out))
+
+
 def _acc_labels(seed, shape, num_bins, density, one_bin=None):
     """Seeded labels on the card: edge pixels of random bins (or all of
     one_bin) at the given density, the num_bins sentinel elsewhere."""
@@ -507,7 +572,7 @@ def _acc_check(lab, num_bins, min_r, max_r):
 # (shape, num_bins, min_r, max_r, density, one bin): 6 % edges, every pixel
 # an edge of one bin (the 135-degree bin, whose votes crowd a diagonal),
 # 254 bins, r = 0, max_r 60, per-offset spans (31, and 68 with a 70-px
-# halo), one plane, 130 planes, sizes that are no multiple of the 64 x 128
+# halo), one plane, 130 planes, sizes that are no multiple of the 128 x 128
 # tile, and the 1280 class
 ACC_CASES = {
     "6% [8,300,420]": ((8, 300, 420), 64, 1, 30, 0.06, None),
@@ -520,6 +585,15 @@ ACC_CASES = {
     "P=1 [1,77,131]": ((1, 77, 131), 64, 1, 30, 0.1, None),
     "P=130 [130,70,135]": ((130, 70, 135), 64, 1, 30, 0.06, None),
     "1280 [2,1280,1280]": ((2, 1280, 1280), 64, 1, 30, 0.06, None),
+    # rows of W = 1 and 15 (mod 16) bytes, so every 16-byte chunk boundary
+    # falls at another column of each row; planes shorter than a tile
+    "W=1 mod 16 [3,50,177]": ((3, 50, 177), 64, 1, 30, 0.1, None),
+    "W=15 mod 16 [5,33,767]": ((5, 33, 767), 64, 1, 30, 0.1, None),
+    "H=7 [4,7,300]": ((4, 7, 300), 64, 1, 30, 0.2, None),
+    # the widest staging: every pixel an edge of one bin at span 60
+    "100% one bin 1280 span 60": ((1, 1280, 1280), 64, 1, 60, 1.0, 16),
+    # a 200-px halo: windows of more chunks than one segment takes
+    "max_r 200 [1,600,600]": ((1, 600, 600), 64, 1, 200, 0.03, None),
 }
 
 
@@ -577,6 +651,16 @@ def test_accumulator_capture_and_replay(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, _acc_plain(b, 64, 1, 30))
+
+
+def test_accumulator_takes_an_unaligned_view(dev):
+    """Labels whose first byte is not on a 16-byte boundary (a contiguous
+    slice of a larger pool): chunks that cross the buffer's start and end
+    are read byte by byte, and the result equals the plain version."""
+    pool = _acc_labels(6, (3 * 61 * 131 + 5,), 64, 0.3)
+    lab = pool[5:].view(3, 61, 131)
+    assert lab.data_ptr() % 16 and lab.is_contiguous()
+    _acc_check(lab, 64, 1, 30)
 
 
 def test_accumulator_makes_no_sync(dev):
