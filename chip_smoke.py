@@ -117,6 +117,14 @@ Phases, each printing one line or a few:
      (at most the one saturation-flag read); first-call and warm walls
      (graphed and eager in turns, medians of 5), peak memory and graph
      pool size; the session's action script graphed equal to eager;
+  10b. the graphed entry points' pinned staging: back-to-back graphed
+     calls that alternate two inputs of one key with no sync between them
+     (detect_board_auto at 768^2 and 767 x 700 in one bucket,
+     detect_board_bucket_batch of the 16 diagrams in two orders), each
+     equal to the eager run of its own input in every field, with no
+     pinned host allocation in the warm calls; the staging's host and
+     upload ms at 768^2 and at B = 16 beside _to_device's, and the host
+     wall of the 16 to_sgf of the B = 16 result;
   11. (last) each phase-10 path's warm graphed call under torch.profiler:
      the kernels a replay runs, counted by name (the 768^2 call must run
      K1 twice and K2, K3, G, A, S1 and S2), its device busy time (the union of
@@ -134,8 +142,8 @@ throughputs (the sharded ones included), the config variants' walls and the
 accumulators' device times, one with the post stage's times and the host
 synchronisations (phase 5e), one with
 the session's and the loader's numbers, one with phase 10-11's graph
-records (its kernel counts also in each kernel's "replay_launches"), the
-card's name and power limit,
+records (its kernel counts also in each kernel's "replay_launches"), one
+with phase 10b's staging records, the card's name and power limit,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the exit code is not 0 and no result line is printed.
@@ -2215,8 +2223,9 @@ def eager_entry_points():
     from img2sgf_tpu_torch.pipeline import detect
 
     graphed = detect._detect_batch
-    detect._detect_batch = lambda rgb, cfg, ths, hw, timings: \
-        detect._detect_batch_impl(rgb, cfg, ths, hw, timings)
+    detect._detect_batch = lambda rgb, dev, cfg, ths, hw, timings, canvas=None: \
+        detect._detect_batch_impl(detect._on_canvas(rgb, dev, canvas), cfg,
+                                  ths, hw, timings)
     try:
         yield
     finally:
@@ -2374,6 +2383,161 @@ def phase_graphs(dev, cfg, rgb, batch, small):
     return out
 
 
+def page_diagram(h, w, seed):
+    """A seeded diagram, min(h, w) px square, top-left on a blank h x w
+    page."""
+    side = min(h, w)
+    page = np.full((h, w, 3), 250, np.uint8)
+    page[:side, :side] = render_diagram(size=side, seed=seed)[0]
+    return page
+
+
+def pinned_handouts():
+    """Blocks the pinned host allocator has handed out so far (None where
+    this PyTorch does not count them)."""
+    import torch
+
+    get = getattr(torch.cuda, "host_memory_stats", None)
+    return (get() if get is not None else {}).get("active_requests.allocated")
+
+
+def alternating_calls(dev, cfg, entry, batch=None, calls=6):
+    """Graphed calls of one key that alternate two inputs back to back, no
+    sync between them, after a first call that captures: for "auto"
+    detect_board_auto of the 768^2 diagram and of a 767 x 700 page (one 768
+    bucket), for "bucket_batch" detect_board_bucket_batch of the 16 batch
+    diagrams (batch, batch_images() if None) in their order and reversed.
+    Each result equals the eager run of its own input in every field, so
+    a reused pinned staging buffer never hands a call another call's
+    pixels, and the warm calls allocate no pinned host memory
+    (graphs.pinned_allocs, and the pinned allocator's handed-out blocks
+    where PyTorch counts them). Raises on any difference; returns the
+    record."""
+    import torch
+
+    from img2sgf_tpu_torch import choose_line_threshold
+    from img2sgf_tpu_torch.pipeline import (
+        detect_board_auto, detect_board_bucket_batch, graphs)
+
+    if entry == "auto":
+        inputs = [render_diagram()[0], page_diagram(SIZE - 1, 700, SEED + 1)]
+
+        def call(x, **kw):
+            return detect_board_auto(x, cfg, choose_line_threshold(
+                *x.shape[:2]), device=dev, **kw)
+    else:
+        imgs = [im for im, _ in (batch or batch_images())]
+        inputs = [bucket(imgs), bucket(imgs[::-1])]
+
+        def call(x, **kw):
+            canvases, hs, ws, ths = x
+            return detect_board_bucket_batch(canvases, cfg, ths, hs, ws,
+                                             device=dev, **kw)
+    want = [call(x, timings={}) for x in inputs]
+    call(inputs[0])
+    torch.cuda.synchronize()
+    allocs, handouts = graphs.pinned_allocs, pinned_handouts()
+    got = [call(inputs[i % 2]) for i in range(calls)]
+    torch.cuda.synchronize()
+    rec = dict(calls=calls, pinned_allocs=graphs.pinned_allocs - allocs,
+               pinned_handouts=None if handouts is None
+               else pinned_handouts() - handouts)
+    for i, res in enumerate(got):
+        compare_results(res, want[i % 2], f"{entry}: alternating call {i}")
+    if rec["pinned_allocs"] or rec["pinned_handouts"]:
+        raise AssertionError(f"{entry}: warm graphed calls allocated pinned "
+                             f"host memory: {rec}")
+    return rec
+
+
+def staging_ms(dev, cfg, x, ths, hw, reps=21):
+    """The host wall of one staging of a host input x [B, h, w, 3] into its
+    graph key's buffers (pad into the pinned canvas, the uploads enqueued)
+    and the uploads' device time (CUDA events), beside the host wall of
+    _to_device(x) (pin_memory and the upload enqueued, the eager path's
+    staging); medians of reps, the card idle before each."""
+    import torch
+
+    from img2sgf_tpu_torch.pipeline import detect, graphs
+
+    B = x.shape[0]
+    key = (hw is not None, B, SIZE, SIZE, cfg)
+    entry = graphs.cache_for(dev).keys[key]
+    host, upload, eager = [], [], []
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0.record()
+        t0 = time.perf_counter()
+        entry.stage(x, ths, hw)
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        upload.append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        detect._to_device(x, dev)
+        eager.append((time.perf_counter() - t0) * 1e3)
+    return dict(stage_host_ms=statistics.median(host),
+                upload_device_ms=statistics.median(upload),
+                to_device_host_ms=statistics.median(eager),
+                bytes=x.numel())
+
+
+def phase_staging(dev, cfg, rgb, batch):
+    """Phase 10b: the graphed entry points' pinned staging. Back-to-back
+    graphed calls alternating two inputs equal their eager results and
+    allocate no pinned memory (alternating_calls: detect_board_auto at
+    768^2 and 767 x 700 in one bucket, detect_board_bucket_batch at
+    B = 16); then the staging's host and upload times at 768^2 and at
+    B = 16 beside _to_device's (staging_ms), and the host wall of the 16
+    to_sgf of the B = 16 result (median of 21 passes). Returns the JSON
+    record."""
+    import torch
+
+    from img2sgf_tpu_torch import choose_line_threshold, to_sgf
+    from img2sgf_tpu_torch.pipeline import detect, detect_board_bucket_batch
+    from img2sgf_tpu_torch.pipeline import graphs
+
+    graphs.clear()
+    out = {"alternating": {e: alternating_calls(dev, cfg, e, batch)
+                           for e in ("auto", "bucket_batch")}}
+    log("staging", "alternating graphed calls equal eager in every field, "
+        f"no pinned allocation: {out['alternating']}")
+    h, w = rgb.shape[:2]
+    canvases, hs, ws, ths = bucket([im for im, _ in batch])
+    B = len(hs)
+    out["stage"] = {
+        f"{SIZE}^2": staging_ms(
+            dev, cfg, torch.from_numpy(rgb)[None],
+            detect._thresholds([choose_line_threshold(h, w)], 1),
+            detect._content_dims([h], [w], 1, SIZE, SIZE)),
+        f"B={B} {SIZE}": staging_ms(
+            dev, cfg, torch.from_numpy(canvases), detect._thresholds(ths, B),
+            detect._content_dims(hs, ws, B, SIZE, SIZE))}
+    res = detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
+    ready = res.board_ready.cpu().numpy()
+    boards = res.full_board.cpu()
+    sides = res.side_to_move.cpu().numpy()
+    walls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        for i in range(B):
+            if ready[i]:
+                to_sgf(boards[i], side_to_move=int(sides[i]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["to_sgf_ms"] = {"boards": int(ready.sum()),
+                        "median_ms": statistics.median(walls),
+                        "min_ms": min(walls), "max_ms": max(walls)}
+    for k, v in out["stage"].items():
+        log("staging", f"{k}: stage {v['stage_host_ms']:.3f} ms host, upload "
+            f"{v['upload_device_ms']:.3f} ms device; _to_device "
+            f"{v['to_device_host_ms']:.3f} ms host ({v['bytes']} bytes)")
+    log("staging", f"{out['to_sgf_ms']['boards']} to_sgf on the host: "
+        f"{out['to_sgf_ms']['median_ms']:.3f} ms (median of 21)")
+    return out
+
+
 def phase_graph_profiles(dev, cfg, rgb, batch, small, graph_rec, reps=3):
     """Phase 11 (last): torch.profiler over `reps` warm graphed calls of
     each phase-10 path: the kernels one call runs, counted by name (the
@@ -2463,6 +2627,7 @@ def main() -> int:
     paths.update(sharded_paths)
     tput.update(sharded_tput)
     graph_rec = phase_graphs(dev, cfg, rgb, batch, small)
+    staging = phase_staging(dev, cfg, rgb, batch)
     phase_profile(kernels)  # late: the profiler's hooks could slow the wall
     bb = tput[f"bucket_batch_{SIZE}_B{len(batch)}"]
     bb.update(phase_busy(dev, cfg, batch, bb["wall_ms"]))
@@ -2580,6 +2745,7 @@ def main() -> int:
     print(json.dumps({"post": post}))
     print(json.dumps({"session": session, "loader": loader}))
     print(json.dumps({"graphs": graph_rec}))
+    print(json.dumps({"staging": staging}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

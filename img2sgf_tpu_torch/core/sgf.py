@@ -10,6 +10,20 @@ import numpy as np
 
 from .board import BLACK, BoardStates
 
+# "[" + column letter + row letter + "]" of every point, indexed [i, j]
+_POINTS = np.array([["[" + a + b + "]" for b in string.ascii_lowercase]
+                    for a in string.ascii_lowercase])
+
+
+def _moves(board, colour: int, tag: str, board_size: int) -> str:
+    """The colour's tag and points in the reference's order (i, then j):
+    np.nonzero lists them row-major. The tag stands whenever the colour is
+    anywhere on the board, as the reference tests it."""
+    if not (board == colour).any():
+        return ""
+    i, j = np.nonzero(board[:board_size, :board_size] == colour)
+    return tag + "".join(_POINTS[i, j].tolist())
+
 
 def to_sgf(board, side_to_move: int = BLACK, board_size: int = 19) -> str:
     """Render a [board_size, board_size] array of BoardStates (indexed
@@ -18,29 +32,12 @@ def to_sgf(board, side_to_move: int = BLACK, board_size: int = 19) -> str:
     if hasattr(board, "detach"):
         board = board.detach().cpu().numpy()
     board = np.asarray(board)
-    letters = string.ascii_lowercase
+    black_moves = _moves(board, int(BoardStates.BLACK), "AB", board_size)
+    white_moves = _moves(board, int(BoardStates.WHITE), "AW", board_size)
     out = "(;GM[1]FF[4]SZ[" + str(board_size) + "]\n"
-    out += "PL[B]\n" if side_to_move == BLACK else "PL[W]\n"
-
-    black_moves, white_moves = "", ""
-    if (board == BoardStates.BLACK).any():
-        black_moves += "AB"
-        for i in range(board_size):
-            for j in range(board_size):
-                if board[i, j] == BoardStates.BLACK:
-                    black_moves += "[" + letters[i] + letters[j] + "]"
-    if (board == BoardStates.WHITE).any():
-        white_moves += "AW"
-        for i in range(board_size):
-            for j in range(board_size):
-                if board[i, j] == BoardStates.WHITE:
-                    white_moves += "[" + letters[i] + letters[j] + "]"
-
     if side_to_move == BLACK:
-        out += black_moves + "\n" + white_moves + "\n" + ")\n"
-    else:
-        out += white_moves + "\n" + black_moves + "\n" + ")\n"
-    return out
+        return out + "PL[B]\n" + black_moves + "\n" + white_moves + "\n)\n"
+    return out + "PL[W]\n" + white_moves + "\n" + black_moves + "\n)\n"
 
 
 def guess_side_to_move(board) -> int:

@@ -1048,6 +1048,51 @@ def test_graph_cache_drops_least_recent_key(dev, monkeypatch):
     graphs.clear()
 
 
+@pytest.mark.parametrize("entry, overflow", [
+    ("auto", True), ("auto", False), ("bucket_batch", True)])
+def test_graphed_calls_alternating_inputs_equal_eager(dev, entry, overflow):
+    """Graphed calls of one key that alternate two inputs back to back (no
+    sync between them; with the rerun off no host read either) each equal
+    the eager run of their own input in every field, and warm calls
+    allocate no pinned host memory (chip_smoke.alternating_calls:
+    detect_board_auto at 768^2 and 767 x 700 in the 768 bucket,
+    detect_board_bucket_batch at B = 16)."""
+    from chip_smoke import alternating_calls
+
+    cfg = DetectionConfig()
+    if not overflow:
+        cfg = cfg.replace(overflow_center_candidates=0)
+    rec = alternating_calls(dev, cfg, entry)
+    assert rec["pinned_allocs"] == 0 and not rec["pinned_handouts"]
+
+
+def test_graphed_call_takes_an_input_on_the_card(dev):
+    """A CUDA input is padded into the graph's static canvas on the card:
+    detect_board_auto of a 767 x 700 page given as a CUDA tensor, after a
+    call with a host image of the same key, equals the eager run."""
+    from chip_smoke import page_diagram
+    from img2sgf_tpu_torch.pipeline import detect_board_auto
+
+    cfg = DetectionConfig()
+    page = page_diagram(767, 700, 7)
+    detect_board_auto(page[::-1].copy(), cfg, 30, device=dev)
+    got = detect_board_auto(torch.from_numpy(page).to(dev), cfg, 30,
+                            device=dev)
+    _equal_results(got, detect_board_auto(page, cfg, 30, device=dev,
+                                          timings={}), "CUDA input")
+
+
+def test_to_sgf_of_a_board_on_the_card(dev):
+    """to_sgf takes a CUDA tensor and writes what it writes for the same
+    board on the host."""
+    from img2sgf_tpu_torch.core import to_sgf
+
+    board = np.random.default_rng(3).integers(0, 4, (19, 19)).astype(np.int32)
+    for side in (1, 2):
+        assert to_sgf(torch.from_numpy(board).to(dev), side) == \
+            to_sgf(board, side)
+
+
 def test_graphs_from_threads_sharing_a_stream(dev):
     """Four threads call detect_board_jit at once on the default stream
     (one graph cache, one set of static buffers) with two images in turns:
