@@ -117,14 +117,14 @@ Phases, each printing one line or a few:
      (at most the one saturation-flag read); first-call and warm walls
      (graphed and eager in turns, medians of 5), peak memory and graph
      pool size; the session's action script graphed equal to eager;
-  10b. the graphed entry points' pinned staging: back-to-back graphed
-     calls that alternate two inputs of one key with no sync between them
+  10b. the host side of a graphed call: back-to-back graphed calls that
+     alternate two inputs of one key with no sync between them
      (detect_board_auto at 768^2 and 767 x 700 in one bucket,
      detect_board_bucket_batch of the 16 diagrams in two orders), each
-     equal to the eager run of its own input in every field, with no
-     pinned host allocation in the warm calls; the staging's host and
-     upload ms at 768^2 and at B = 16 beside _to_device's, and the host
-     wall of the 16 to_sgf of the B = 16 result;
+     equal to the eager run of its own input in every field, with no new
+     capture; the staging's (_to_device) host ms and upload device ms at
+     768^2 and at B = 16, and the host wall of the 16 to_sgf of the B = 16
+     result;
   11. (last) each phase-10 path's warm graphed call under torch.profiler:
      the kernels a replay runs, counted by name (the 768^2 call must run
      K1 twice and K2, K3, G, A, S1 and S2), its device busy time (the union of
@@ -2223,9 +2223,8 @@ def eager_entry_points():
     from img2sgf_tpu_torch.pipeline import detect
 
     graphed = detect._detect_batch
-    detect._detect_batch = lambda rgb, dev, cfg, ths, hw, timings, canvas=None: \
-        detect._detect_batch_impl(detect._on_canvas(rgb, dev, canvas), cfg,
-                                  ths, hw, timings)
+    detect._detect_batch = lambda rgb, cfg, ths, hw, timings: \
+        detect._detect_batch_impl(rgb, cfg, ths, hw, timings)
     try:
         yield
     finally:
@@ -2392,13 +2391,13 @@ def page_diagram(h, w, seed):
     return page
 
 
-def pinned_handouts():
-    """Blocks the pinned host allocator has handed out so far (None where
-    this PyTorch does not count them)."""
+def host_allocs():
+    """cudaHostAlloc calls of PyTorch's pinned host allocator so far (None
+    where this PyTorch does not count them)."""
     import torch
 
     get = getattr(torch.cuda, "host_memory_stats", None)
-    return (get() if get is not None else {}).get("active_requests.allocated")
+    return (get() if get is not None else {}).get("num_host_alloc")
 
 
 def alternating_calls(dev, cfg, entry, batch=None, calls=6):
@@ -2408,11 +2407,10 @@ def alternating_calls(dev, cfg, entry, batch=None, calls=6):
     bucket), for "bucket_batch" detect_board_bucket_batch of the 16 batch
     diagrams (batch, batch_images() if None) in their order and reversed.
     Each result equals the eager run of its own input in every field, so
-    a reused pinned staging buffer never hands a call another call's
-    pixels, and the warm calls allocate no pinned host memory
-    (graphs.pinned_allocs, and the pinned allocator's handed-out blocks
-    where PyTorch counts them). Raises on any difference; returns the
-    record."""
+    the graph's static buffers never hand a call another call's pixels,
+    and the warm calls capture nothing. Raises on any difference; returns
+    the record, with the pinned allocator's new cudaHostAlloc calls in the
+    warm calls (host_allocs, recorded, not held to a number)."""
     import torch
 
     from img2sgf_tpu_torch import choose_line_threshold
@@ -2436,85 +2434,66 @@ def alternating_calls(dev, cfg, entry, batch=None, calls=6):
     want = [call(x, timings={}) for x in inputs]
     call(inputs[0])
     torch.cuda.synchronize()
-    allocs, handouts = graphs.pinned_allocs, pinned_handouts()
+    captures, allocs = graphs.captures, host_allocs()
     got = [call(inputs[i % 2]) for i in range(calls)]
     torch.cuda.synchronize()
-    rec = dict(calls=calls, pinned_allocs=graphs.pinned_allocs - allocs,
-               pinned_handouts=None if handouts is None
-               else pinned_handouts() - handouts)
+    rec = dict(calls=calls, captures=graphs.captures - captures,
+               host_allocs=None if allocs is None else host_allocs() - allocs)
     for i, res in enumerate(got):
         compare_results(res, want[i % 2], f"{entry}: alternating call {i}")
-    if rec["pinned_allocs"] or rec["pinned_handouts"]:
-        raise AssertionError(f"{entry}: warm graphed calls allocated pinned "
-                             f"host memory: {rec}")
+    if rec["captures"]:
+        raise AssertionError(f"{entry}: warm graphed calls captured: {rec}")
     return rec
 
 
-def staging_ms(dev, cfg, x, ths, hw, reps=21):
-    """The host wall of one staging of a host input x [B, h, w, 3] into its
-    graph key's buffers (pad into the pinned canvas, the uploads enqueued)
-    and the uploads' device time (CUDA events), beside the host wall of
-    _to_device(x) (pin_memory and the upload enqueued, the eager path's
-    staging); medians of reps, the card idle before each."""
+def staging_ms(dev, x, reps=21):
+    """The host wall of one staging of a host input x [B, h, w, 3] as the
+    entry points do it (detect._to_device: pin_memory, the upload enqueued)
+    and the upload's device time (CUDA events); medians of reps, the card
+    idle before each."""
     import torch
 
-    from img2sgf_tpu_torch.pipeline import detect, graphs
+    from img2sgf_tpu_torch.pipeline import detect
 
-    B = x.shape[0]
-    key = (hw is not None, B, SIZE, SIZE, cfg)
-    entry = graphs.cache_for(dev).keys[key]
-    host, upload, eager = [], [], []
+    host, upload = [], []
     e0, e1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     for _ in range(reps):
         torch.cuda.synchronize()
         e0.record()
         t0 = time.perf_counter()
-        entry.stage(x, ths, hw)
+        detect._to_device(x, dev)
         host.append((time.perf_counter() - t0) * 1e3)
         e1.record()
         torch.cuda.synchronize()
         upload.append(e0.elapsed_time(e1))
-        t0 = time.perf_counter()
-        detect._to_device(x, dev)
-        eager.append((time.perf_counter() - t0) * 1e3)
-    return dict(stage_host_ms=statistics.median(host),
-                upload_device_ms=statistics.median(upload),
-                to_device_host_ms=statistics.median(eager),
-                bytes=x.numel())
+    return dict(to_device_host_ms=statistics.median(host),
+                upload_device_ms=statistics.median(upload), bytes=x.numel())
 
 
 def phase_staging(dev, cfg, rgb, batch):
-    """Phase 10b: the graphed entry points' pinned staging. Back-to-back
-    graphed calls alternating two inputs equal their eager results and
-    allocate no pinned memory (alternating_calls: detect_board_auto at
-    768^2 and 767 x 700 in one bucket, detect_board_bucket_batch at
-    B = 16); then the staging's host and upload times at 768^2 and at
-    B = 16 beside _to_device's (staging_ms), and the host wall of the 16
-    to_sgf of the B = 16 result (median of 21 passes). Returns the JSON
-    record."""
+    """Phase 10b: the host side of a graphed call. Back-to-back graphed
+    calls alternating two inputs equal their eager results and capture
+    nothing (alternating_calls: detect_board_auto at 768^2 and 767 x 700
+    in one bucket, detect_board_bucket_batch at B = 16); then the
+    staging's host and upload times at 768^2 and at B = 16 (staging_ms),
+    and the host wall of the 16 to_sgf of the B = 16 result (median of 21
+    passes). Returns the JSON record."""
     import torch
 
-    from img2sgf_tpu_torch import choose_line_threshold, to_sgf
-    from img2sgf_tpu_torch.pipeline import detect, detect_board_bucket_batch
-    from img2sgf_tpu_torch.pipeline import graphs
+    from img2sgf_tpu_torch import to_sgf
+    from img2sgf_tpu_torch.pipeline import detect_board_bucket_batch, graphs
 
     graphs.clear()
     out = {"alternating": {e: alternating_calls(dev, cfg, e, batch)
                            for e in ("auto", "bucket_batch")}}
     log("staging", "alternating graphed calls equal eager in every field, "
-        f"no pinned allocation: {out['alternating']}")
-    h, w = rgb.shape[:2]
+        f"no capture: {out['alternating']}")
     canvases, hs, ws, ths = bucket([im for im, _ in batch])
     B = len(hs)
     out["stage"] = {
-        f"{SIZE}^2": staging_ms(
-            dev, cfg, torch.from_numpy(rgb)[None],
-            detect._thresholds([choose_line_threshold(h, w)], 1),
-            detect._content_dims([h], [w], 1, SIZE, SIZE)),
-        f"B={B} {SIZE}": staging_ms(
-            dev, cfg, torch.from_numpy(canvases), detect._thresholds(ths, B),
-            detect._content_dims(hs, ws, B, SIZE, SIZE))}
+        f"{SIZE}^2": staging_ms(dev, torch.from_numpy(rgb)),
+        f"B={B} {SIZE}": staging_ms(dev, torch.from_numpy(canvases))}
     res = detect_board_bucket_batch(canvases, cfg, ths, hs, ws, device=dev)
     ready = res.board_ready.cpu().numpy()
     boards = res.full_board.cpu()
@@ -2530,9 +2509,9 @@ def phase_staging(dev, cfg, rgb, batch):
                         "median_ms": statistics.median(walls),
                         "min_ms": min(walls), "max_ms": max(walls)}
     for k, v in out["stage"].items():
-        log("staging", f"{k}: stage {v['stage_host_ms']:.3f} ms host, upload "
-            f"{v['upload_device_ms']:.3f} ms device; _to_device "
-            f"{v['to_device_host_ms']:.3f} ms host ({v['bytes']} bytes)")
+        log("staging", f"{k}: _to_device {v['to_device_host_ms']:.3f} ms "
+            f"host, upload {v['upload_device_ms']:.3f} ms device "
+            f"({v['bytes']} bytes)")
     log("staging", f"{out['to_sgf_ms']['boards']} to_sgf on the host: "
         f"{out['to_sgf_ms']['median_ms']:.3f} ms (median of 21)")
     return out

@@ -108,8 +108,8 @@ def make_sharded_detector(devices, cfg: DetectionConfig, bucketed: bool = False)
                 # card they are copied on this thread's current stream of
                 # theirs. Either stream waits for that work first.
                 torch.cuda.current_stream(rgb.device).wait_event(ready)
-            x = _as_images(rgb, 4, "[B, H, W, 3]")
-            res = _detect_batch(x, dev, cfg, ths, hw, None)
+            x = _as_images(rgb, dev, 4, "[B, H, W, 3]")
+            res = _detect_batch(x, cfg, ths, hw, None)
             if stream is not None:
                 # the pool's streams do not wait for the default stream, nor
                 # it for them: the caller's thread reads (and copies to

@@ -278,8 +278,8 @@ _reads_lock = threading.Lock()
 def _chunks_to_run(pooled: _Pooled, flags=None) -> int:
     """How many chunks of the rerun order hold a saturated plane: the
     first ceil(n_sat / chunk). The call's one host read, of the P flags
-    (through pinned memory, flags if given, and an event on a card); none
-    with the rerun off."""
+    (through pinned memory, the buffer flags if given, and an event on a
+    card); none with the rerun off."""
     global flag_reads
     if pooled.sat is None:
         return 0
@@ -477,35 +477,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _as_images(x, ndim: int, what: str):
+def _as_images(x, dev: torch.device, ndim: int, what: str):
     """uint8 images (numpy array or tensor) of `ndim` dims ending in 3
-    channels, as a tensor where they are (_detect_batch moves them)."""
+    channels, on dev (_to_device)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     if x.dtype != torch.uint8 or x.ndim != ndim or x.shape[-1] != 3:
         raise ValueError(f"expected {what} uint8, got {tuple(x.shape)} "
                          f"{x.dtype}")
-    return x
-
-
-def _pad_into(dst, src) -> None:
-    """src [B, h, w, C] top-left into dst [B, H, W, C] (h <= H, w <= W), the
-    rest of dst zeroed: two tensors, or two numpy arrays."""
-    h, w = src.shape[1:3]
-    dst[:, :h, :w] = src
-    dst[:, h:] = 0
-    dst[:, :h, w:] = 0
-
-
-def _on_canvas(rgb, dev: torch.device, canvas=None):
-    """rgb [B, h, w, 3] on dev (_to_device), padded top-left into zero
-    canvases of canvas = (H, W) if given: the eager path's input."""
-    rgb = _to_device(rgb, dev)
-    if canvas is None:
-        return rgb
-    x = torch.empty((rgb.shape[0], *canvas, 3), dtype=torch.uint8, device=dev)
-    _pad_into(x, rgb)
-    return x
+    return _to_device(x, dev)
 
 
 def _thresholds(line_thresholds, B: int):
@@ -563,21 +543,16 @@ def _detect_batch_impl(rgb, cfg: DetectionConfig, line_thresholds, hw,
     return _segment_post(sel, cfg, ths, hwb, mark)
 
 
-def _detect_batch(rgb, dev: torch.device, cfg: DetectionConfig,
-                  line_thresholds, hw, timings: dict | None,
-                  canvas=None) -> BoardResult:
-    """_detect_batch_impl's result on dev for images rgb [B, h, w, 3] uint8
-    wherever they are, padded top-left into zero canvases of canvas = (H,
-    W) (rgb's own size by default): on a card from the graphs of
-    pipeline/graphs.py (one set per shape, config and stream, captured at
-    first use and replayed), which stage host images through pinned
-    buffers of their own; eagerly on the CPU or with timings."""
-    if dev.type == "cuda" and timings is None:
+def _detect_batch(rgb, cfg: DetectionConfig, line_thresholds, hw,
+                  timings: dict | None) -> BoardResult:
+    """_detect_batch_impl's result, from the graphs of pipeline/graphs.py
+    for a batch on a card (one set per shape, config and stream, captured
+    at first use and replayed), eagerly on the CPU or with timings."""
+    if rgb.is_cuda and timings is None:
         from . import graphs
 
-        return graphs.run(rgb, dev, cfg, line_thresholds, hw, canvas)
-    return _detect_batch_impl(_on_canvas(rgb, dev, canvas), cfg,
-                              line_thresholds, hw, timings)
+        return graphs.run(rgb, cfg, line_thresholds, hw)
+    return _detect_batch_impl(rgb, cfg, line_thresholds, hw, timings)
 
 
 def _row(res: BoardResult, i: int) -> BoardResult:
@@ -606,7 +581,7 @@ def detect_board(rgb_u8, cfg: DetectionConfig, line_threshold=None,
     dev = resolve_device(device)
     if line_threshold is None:
         line_threshold = cfg.line_threshold
-    rgb = _to_device(_as_images(rgb_u8, 3, "[H, W, 3]"), dev)
+    rgb = _as_images(rgb_u8, dev, 3, "[H, W, 3]")
     hw = None
     if content_hw is not None:
         hw = _content_dims([content_hw[0]], [content_hw[1]], 1, *rgb.shape[:2])
@@ -622,9 +597,9 @@ def detect_board_jit(rgb_u8, cfg: DetectionConfig, line_threshold, *,
     replayed after), the counterpart of the JAX package's detect_board_jit;
     on the CPU, eagerly."""
     dev = resolve_device(device)
-    rgb = _as_images(rgb_u8, 3, "[H, W, 3]")
+    rgb = _as_images(rgb_u8, dev, 3, "[H, W, 3]")
     ths = _thresholds([line_threshold], 1)
-    return _row(_detect_batch(rgb[None], dev, cfg, ths, None, None), 0)
+    return _row(_detect_batch(rgb[None], cfg, ths, None, None), 0)
 
 
 # canvas-size ladder of the shape-bucketed path, as in the JAX package: one
@@ -653,13 +628,14 @@ def detect_board_auto(rgb_u8, cfg: DetectionConfig, line_threshold=None, *,
     dev = resolve_device(device)
     if line_threshold is None:
         line_threshold = cfg.line_threshold
-    rgb = _as_images(rgb_u8, 3, "[h, w, 3]")
+    rgb = _as_images(rgb_u8, dev, 3, "[h, w, 3]")
     h, w = rgb.shape[:2]
     Hc, Wc = bucket_dim(h), bucket_dim(w)
+    canvas = torch.zeros((1, Hc, Wc, 3), dtype=torch.uint8, device=dev)
+    canvas[0, :h, :w] = rgb
     hw = _content_dims([h], [w], 1, Hc, Wc)
     ths = _thresholds([line_threshold], 1)
-    res = _row(_detect_batch(rgb[None], dev, cfg, ths, hw, timings,
-                             canvas=(Hc, Wc)), 0)
+    res = _row(_detect_batch(canvas, cfg, ths, hw, timings), 0)
     return dataclasses.replace(res, grey=res.grey[:h, :w],
                                edges=res.edges[:h, :w],
                                circles_removed=res.circles_removed[:h, :w])
@@ -673,9 +649,9 @@ def detect_board_batch(rgb_u8_batch, cfg: DetectionConfig, line_thresholds, *,
     On a card it replays the CUDA graphs of (B, H, W, cfg); with timings=
     it runs eagerly."""
     dev = resolve_device(device)
-    rgb = _as_images(rgb_u8_batch, 4, "[B, H, W, 3]")
+    rgb = _as_images(rgb_u8_batch, dev, 4, "[B, H, W, 3]")
     ths = _thresholds(line_thresholds, rgb.shape[0])
-    return _detect_batch(rgb, dev, cfg, ths, None, timings)
+    return _detect_batch(rgb, cfg, ths, None, timings)
 
 
 @torch.no_grad()
@@ -689,8 +665,8 @@ def detect_board_bucket_batch(canvases, cfg: DetectionConfig, line_thresholds,
     package. On a card it replays the CUDA graphs of (B, Hc, Wc, cfg); with
     timings= it runs eagerly."""
     dev = resolve_device(device)
-    rgb = _as_images(canvases, 4, "[B, Hc, Wc, 3]")
+    rgb = _as_images(canvases, dev, 4, "[B, Hc, Wc, 3]")
     B, H, W = rgb.shape[:3]
     ths = _thresholds(line_thresholds, B)
     hw = _content_dims(hs, ws, B, H, W)
-    return _detect_batch(rgb, dev, cfg, ths, hw, timings)
+    return _detect_batch(rgb, cfg, ths, hw, timings)

@@ -16,16 +16,10 @@ stream), captured at the key's first call and replayed after:
     last;
   * with the rerun off, one graph of the whole call, and no host read.
 
-A call's inputs reach the graphs' static buffers through pinned host
-buffers that each key owns: the images (padded top-left into the key's
-canvas on the host, margins zeroed) in one buffer, the line thresholds and
-content dims in another, each uploaded with one asynchronous copy. Before
-it writes them, a call waits for the event recorded after the last upload
-from them, long done when that call's outputs were read. Images that are
-already on a card are copied on the device instead. The outputs are cloned
-after the replay: JAX returns fresh arrays, and the next replay overwrites
-the static ones. The arithmetic is the eager segments', so the results are
-bit-equal to _detect_batch_impl's.
+The inputs are copied into the graphs' static buffers, and the outputs are
+cloned after the replay: JAX returns fresh arrays, and the next replay
+overwrites the static ones. The arithmetic is the eager segments', so the
+results are bit-equal to _detect_batch_impl's.
 
 First use of a key: one eager warm-up of the segments on a side stream
 (it builds the kernels and fills the device-constant caches), then the
@@ -56,92 +50,36 @@ from ..ops.hysteresis_cuda import card_turn
 from . import detect
 
 MAX_GRAPHS = 8  # graphs per (device, stream) cache
-# Host images of at least this many bytes are padded into the pinned buffer
-# on PyTorch's intra-op threads (0.8 ms for the 28 MB of 16 canvases of the
-# 768 bucket, on the 8-core host of an H100), smaller ones by numpy on the
-# calling thread: for one 768^2 image the thread pool's wake-ups cost more
-# than the copy, and put a ~5 ms tail on the call (PERF.md §6).
-THREADED_COPY_BYTES = 8 << 20
 
-# counts, added to under _lock: graphs captured, graph replays, and pinned
-# host buffers allocated (a key's staging and flag buffers, at its capture)
+# counts, added to under _lock: graphs captured and graph replays
 captures = 0
 replays = 0
-pinned_allocs = 0
 _lock = threading.Lock()
 _caches: dict = {}  # (device index, stream handle) -> _Cache
 _capture_locks: dict = {}  # device index -> lock: one capture at a time
 
 
-def _pinned(shape, dtype) -> torch.Tensor:
-    """A pinned host buffer, counted in pinned_allocs."""
-    global pinned_allocs
-    with _lock:
-        pinned_allocs += 1
-    return torch.empty(shape, dtype=dtype, pin_memory=True)
-
-
-def _small_views(buf, B: int, bucketed: bool):
-    """(ths [B] float32, hw None or (hs, ws) [B] int64): views of a byte
-    buffer that holds the content dims (bucketed) and then the thresholds,
-    so that one copy moves them all."""
-    hw = None
-    if bucketed:
-        hw = (buf[:8 * B].view(torch.int64), buf[8 * B:16 * B].view(torch.int64))
-    off = 16 * B if bucketed else 0
-    return buf[off:off + 4 * B].view(torch.float32), hw
-
-
 class _Key:
-    """A key's graphs, their static inputs and outputs, the pinned host
-    buffers that stage the inputs, and the device constants the graphs
-    read."""
+    """A key's graphs, their static inputs and outputs, and the device
+    constants they read."""
 
-    def __init__(self, key, dev, rgb, cfg: DetectionConfig, ths, hw,
-                 cache: "_Cache"):
-        bucketed, B, H, W, _ = key
+    def __init__(self, rgb, cfg: DetectionConfig, ths, hw, cache: "_Cache"):
+        dev = rgb.device
         self.cfg = cfg
-        self.rgb = torch.empty((B, H, W, 3), dtype=torch.uint8, device=dev)
-        self.host_rgb = _pinned((B, H, W, 3), torch.uint8)
-        nbytes = (20 if bucketed else 4) * B
-        self.small = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-        self.host_small = _pinned(nbytes, torch.uint8)
-        self.ths, self.hw = _small_views(self.small, B, bucketed)
-        self.host_ths, self.host_hw = _small_views(self.host_small, B, bucketed)
-        self.uploaded = torch.cuda.Event()
+        self.rgb = rgb.clone()
+        self.ths = detect._to_device(ths, dev).clone()
+        self.hw = None if hw is None else tuple(
+            detect._to_device(v, dev).clone() for v in hw)
         self.overflow = detect._overflow_on(cfg)
         self.constants: list = []
         self.graphs: list = []
         t0 = time.perf_counter()
-        self.stage(rgb, ths, hw)
         self._warm_up(cache.stream)
         self._capture(cache)
-        self.flags = None
-        if self.overflow:
-            self.flags = _pinned(self.sel.pooled.sat.shape, torch.bool)
+        # the saturation flags' pinned buffer, one per key, reused each call
+        self.flags = None if not self.overflow else torch.empty(
+            self.sel.pooled.sat.shape, dtype=torch.bool, pin_memory=True)
         self.capture_s = time.perf_counter() - t0
-
-    def stage(self, rgb, ths, hw) -> None:
-        """A call's inputs into the static buffers: rgb [B, h, w, 3] uint8
-        (h, w at most the key's canvas) top-left with zeroed margins, ths
-        and hw (host tensors, _thresholds and _content_dims). Host images
-        go through the pinned buffer, images on a card by a device copy;
-        the small values always through theirs."""
-        self.uploaded.synchronize()  # the last upload from the buffers is done
-        if rgb.is_cuda:
-            detect._pad_into(self.rgb, rgb)
-        elif rgb.numel() >= THREADED_COPY_BYTES:
-            detect._pad_into(self.host_rgb, rgb)
-        else:  # numpy's copy, on this thread
-            detect._pad_into(self.host_rgb.numpy(), rgb.numpy())
-        self.host_ths.copy_(ths)
-        if hw is not None:
-            for buf, v in zip(self.host_hw, hw):
-                buf.copy_(v)
-        if not rgb.is_cuda:
-            self.rgb.copy_(self.host_rgb, non_blocking=True)
-        self.small.copy_(self.host_small, non_blocking=True)
-        self.uploaded.record()
 
     def _warm_up(self, side):
         """One eager run of every segment on the side stream (the rerun on
@@ -200,11 +138,16 @@ class _Key:
         kind = "native" if self.hw is None else "bucketed"
         return f"{kind} B={B} {H}x{W} on {self.rgb.device}"
 
-    def replay(self) -> detect.BoardResult:
-        """The result of the staged inputs from the graphs: replays, fresh
-        copies of the outputs."""
+    def replay(self, rgb, ths, hw) -> detect.BoardResult:
+        """The call's result from the graphs: inputs into the static
+        buffers, replays, fresh copies of the outputs."""
         global replays
-        dev = self.rgb.device
+        dev = rgb.device
+        self.rgb.copy_(rgb)
+        self.ths.copy_(detect._to_device(ths, dev))
+        if hw is not None:
+            for buf, v in zip(self.hw, hw):
+                buf.copy_(detect._to_device(v, dev))
         n = 1
         with card_turn(dev):  # the first graph holds both K1 calls
             self.graphs[0].replay()
@@ -246,7 +189,7 @@ class _Cache:
     def n_graphs(self) -> int:
         return sum(len(k.graphs) for k in self.keys.values())
 
-    def run(self, key, dev, rgb, cfg, ths, hw) -> detect.BoardResult:
+    def run(self, key, rgb, cfg, ths, hw) -> detect.BoardResult:
         """The call's result from the key's graphs, captured first if the
         cache does not hold them (dropping least recently used keys to
         keep within MAX_GRAPHS)."""
@@ -254,14 +197,12 @@ class _Cache:
             entry = self.keys.get(key)
             if entry is not None:
                 self.keys.move_to_end(key)
-                entry.stage(rgb, ths, hw)
             else:
                 need = 1 if not detect._overflow_on(cfg) else 3
                 while self.keys and self.n_graphs() + need > MAX_GRAPHS:
-                    self.keys.popitem(last=False)[1].free(dev)
-                entry = self.keys[key] = _Key(key, dev, rgb, cfg, ths, hw,
-                                              self)
-            return entry.replay()
+                    self.keys.popitem(last=False)[1].free(rgb.device)
+                entry = self.keys[key] = _Key(rgb, cfg, ths, hw, self)
+            return entry.replay(rgb, ths, hw)
 
 
 def cache_for(device: torch.device, stream=None) -> _Cache:
@@ -275,21 +216,17 @@ def cache_for(device: torch.device, stream=None) -> _Cache:
         return _caches[k]
 
 
-def run(rgb, dev: torch.device, cfg: DetectionConfig, line_thresholds, hw,
-        canvas=None) -> detect.BoardResult:
-    """_detect_batch_impl(rgb, cfg, line_thresholds, hw, None) on the card
-    dev, from the graphs of its key in the cache of (dev, its current
-    stream). rgb: [B, h, w, 3] uint8 on the host or a card, padded top-left
-    into zero canvases of canvas = (H, W) (rgb's own size by default);
-    line_thresholds and hw: host tensors (_thresholds, _content_dims)."""
+def run(rgb, cfg: DetectionConfig, line_thresholds, hw) -> detect.BoardResult:
+    """_detect_batch_impl(rgb, cfg, line_thresholds, hw, None) of a batch
+    rgb [B, H, W, 3] uint8 on a card, from the graphs of its key in the
+    cache of (rgb's card, its current stream)."""
+    dev = rgb.device
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     B, H, W = rgb.shape[:3]
-    if canvas is not None:
-        H, W = canvas
     key = (hw is not None, B, H, W, cfg)
     with torch.cuda.device(dev):
-        return cache_for(dev).run(key, dev, rgb, cfg, line_thresholds, hw)
+        return cache_for(dev).run(key, rgb, cfg, line_thresholds, hw)
 
 
 def clear() -> None:

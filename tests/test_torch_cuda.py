@@ -1054,20 +1054,20 @@ def test_graphed_calls_alternating_inputs_equal_eager(dev, entry, overflow):
     """Graphed calls of one key that alternate two inputs back to back (no
     sync between them; with the rerun off no host read either) each equal
     the eager run of their own input in every field, and warm calls
-    allocate no pinned host memory (chip_smoke.alternating_calls:
-    detect_board_auto at 768^2 and 767 x 700 in the 768 bucket,
-    detect_board_bucket_batch at B = 16)."""
+    capture nothing (chip_smoke.alternating_calls: detect_board_auto at
+    768^2 and 767 x 700 in the 768 bucket, detect_board_bucket_batch at
+    B = 16)."""
     from chip_smoke import alternating_calls
 
     cfg = DetectionConfig()
     if not overflow:
         cfg = cfg.replace(overflow_center_candidates=0)
     rec = alternating_calls(dev, cfg, entry)
-    assert rec["pinned_allocs"] == 0 and not rec["pinned_handouts"]
+    assert rec["captures"] == 0
 
 
 def test_graphed_call_takes_an_input_on_the_card(dev):
-    """A CUDA input is padded into the graph's static canvas on the card:
+    """A CUDA input goes into the graph's static canvas with no host copy:
     detect_board_auto of a 767 x 700 page given as a CUDA tensor, after a
     call with a host image of the same key, equals the eager run."""
     from chip_smoke import page_diagram

@@ -248,38 +248,20 @@ def test_detect_board_jit_without_card_raises():
         detect_board_jit(synth_board(), _tcfg(TINY), 28.0)
 
 
-@pytest.mark.parametrize("hw", [(48, 40), (47, 40), (48, 33), (30, 21)])
-def test_pad_into_tensors_and_arrays(hw):
-    """_pad_into over a canvas that held another image: content top-left,
-    every margin zeroed, the same on tensors as on numpy arrays (the
-    graphs' host padding below THREADED_COPY_BYTES)."""
-    rng = np.random.default_rng(hw[0] * 100 + hw[1])
-    src = torch.from_numpy(rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8))
-    want = torch.full((2, 48, 40, 3), 7, dtype=torch.uint8)
-    got = torch.full((2, 48, 40, 3), 9, dtype=torch.uint8)
-    tdetect._pad_into(want, src)
-    tdetect._pad_into(got.numpy(), src.numpy())
-    assert torch.equal(got, want)
-    assert torch.equal(want[:, :hw[0], :hw[1]], src)
-    assert int(want.sum()) == int(src.sum())
-
-
-@pytest.mark.parametrize("bucketed", [True, False])
-def test_small_values_share_one_buffer(bucketed):
-    """The thresholds and content dims are views of one byte buffer, laid
-    out without overlap, that hold what is written into them."""
-    from img2sgf_tpu_torch.pipeline import graphs
-
-    B = 3
-    buf = torch.zeros((20 if bucketed else 4) * B, dtype=torch.uint8)
-    ths, hw = graphs._small_views(buf, B, bucketed)
-    ths.copy_(tdetect._thresholds([30.5, 29.0, 27.25], B))
-    if bucketed:
-        dims = tdetect._content_dims([40, 41, 2**40], [7, 8, 9], B, 2**41, 9)
-        for v, d in zip(hw, dims):
-            v.copy_(d)
-        assert [v.tolist() for v in hw] == [[40, 41, 2**40], [7, 8, 9]]
-        assert all(v.dtype == torch.int64 and v.is_contiguous() for v in hw)
-    else:
-        assert hw is None
-    assert ths.tolist() == [30.5, 29.0, 27.25] and ths.dtype == torch.float32
+@pytest.mark.parametrize("P, n_sat", [
+    (8, 0), (8, 1), (8, 4), (8, 5), (8, 8), (128, 33)])
+def test_chunks_to_run_counts_saturated_chunks(P, n_sat):
+    """The rerun covers the first ceil(n_sat / chunk) chunks of the order,
+    wherever the saturated planes lie, through one flag read a call; with
+    the rerun off (no flags) there is no read and no chunk."""
+    rng = np.random.default_rng(P * 1000 + n_sat)
+    sat = torch.zeros(P, dtype=torch.bool)
+    sat[torch.from_numpy(rng.permutation(P)[:n_sat])] = True
+    pooled = tdetect._Pooled({}, torch.zeros((P, 3, 3)), torch.zeros((P, 3)),
+                             sat)
+    reads = tdetect.flag_reads
+    assert tdetect._chunks_to_run(pooled) == -(-n_sat // pooled.chunk)
+    assert tdetect.flag_reads == reads + 1
+    pooled.sat = None
+    assert tdetect._chunks_to_run(pooled) == 0
+    assert tdetect.flag_reads == reads + 1
